@@ -1,0 +1,270 @@
+"""Neural modules: encoders, decoder, Gaussian heads, presence predictor.
+
+Each module mirrors its flax counterpart in ``attend_infer_repeat_tpu``
+layer for layer, so that ``convert.params_from_flax`` maps one parameter
+tree onto the other.  The dtype mix is written out with explicit casts:
+a layer run in ``dtype`` casts its input, weight and bias to ``dtype``
+(as flax ``Dense(dtype=...)`` does), and ``MLP`` returns float32.
+Parameters stay float32.
+
+Initialization follows flax's defaults: truncated lecun-normal weights,
+zero biases, orthogonal recurrent blocks in the LSTM, and ``steps_bias``
+on the presence logit.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from attend_infer_repeat_torch.configs import ModelConfig
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str | None) -> torch.dtype:
+    """A config dtype name as a ``torch.dtype`` (None means float32)."""
+    return _DTYPES[name or "float32"]
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch_dtype(cfg.dtype)
+
+
+def decoder_dtype(cfg: ModelConfig) -> torch.dtype:
+    """Generative-path dtype: ``decoder_dtype`` override, else ``dtype``."""
+    return torch_dtype(cfg.decoder_dtype or cfg.dtype)
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax ``lecun_normal``: normal truncated at ±2σ, variance 1/fan_in."""
+    # stddev of a unit normal truncated to [-2, 2]
+    std = math.sqrt(1.0 / weight.shape[1]) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
+
+
+def init_params(module: nn.Module, generator: torch.Generator) -> None:
+    """Initialize every parameter of ``module`` as flax would."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+    for m in module.modules():
+        if isinstance(m, LSTMCell):        # one orthogonal block per gate
+            with torch.no_grad():
+                for block in m.hh.weight.chunk(4, dim=0):
+                    nn.init.orthogonal_(block, generator=generator)
+        elif isinstance(m, StepsPredictor):
+            nn.init.constant_(m.logit.bias, m.cfg.steps_bias)
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
+    """``layer(x)`` with input, weight and bias cast to ``dtype``."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype),
+                    layer.bias.to(dtype))
+
+
+def _width(in_features: int, hidden: Sequence[int]) -> int:
+    return hidden[-1] if hidden else in_features
+
+
+class MLP(nn.Module):
+    """ELU MLP: hidden widths, then an optional linear head."""
+
+    def __init__(self, in_features: int, hidden: Sequence[int],
+                 out: int | None = None, dtype=torch.float32):
+        super().__init__()
+        widths = [in_features, *hidden] + ([out] if out is not None else [])
+        self.dense = nn.ModuleList(
+            nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:]))
+        self.n_hidden = len(hidden)
+        self.dtype = dtype
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        for i, layer in enumerate(self.dense):
+            x = dense(layer, x, self.dtype)
+            if i < self.n_hidden:
+                x = F.elu(x)
+        return x.to(torch.float32)
+
+
+class Encoder(nn.Module):
+    """Image encoder: flattened image → embedding (flat MLP)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.encoder_conv:
+            raise NotImplementedError(
+                "the encoder's conv stem (encoder_conv) is not ported yet")
+        n_in = cfg.img_size[0] * cfg.img_size[1]
+        self.mlp = MLP(n_in, cfg.encoder_hidden, dtype=compute_dtype(cfg))
+        self.out_features = _width(n_in, cfg.encoder_hidden)
+
+    def forward(self, img):
+        return self.mlp(img.reshape(img.shape[0], -1))
+
+
+class GaussianHead(nn.Module):
+    """features → (loc, scale); scale = softplus(raw + offset) + min_scale."""
+
+    def __init__(self, cfg: ModelConfig, in_features: int, event_dim: int,
+                 loc_bias: Tuple[float, ...] | None = None):
+        super().__init__()
+        self.cfg = cfg
+        self.loc = nn.Linear(in_features, event_dim)
+        self.scale = nn.Linear(in_features, event_dim)
+        self.loc_bias = loc_bias
+
+    def forward(self, h):
+        d = compute_dtype(self.cfg)
+        loc = dense(self.loc, h, d).to(torch.float32)
+        raw = dense(self.scale, h, d).to(torch.float32)
+        scale = F.softplus(raw + self.cfg.scale_offset) + self.cfg.min_scale
+        if self.loc_bias is not None:
+            loc = loc + torch.tensor(self.loc_bias, dtype=torch.float32,
+                                     device=loc.device)
+        return loc, scale
+
+
+def where_param_indices(cfg: ModelConfig):
+    """Indices into the 4-dim (sx, sy, tx, ty) prior tuples that the
+    where-posterior parameterizes."""
+    return (0, 2, 3) if cfg.isotropic_scale else (0, 1, 2, 3)
+
+
+def expand_where(cfg: ModelConfig, z_w: torch.Tensor) -> torch.Tensor:
+    """Posterior sample → 4-dim affine (sx, sy, tx, ty) for the ST."""
+    if cfg.isotropic_scale:
+        return torch.cat([z_w[..., 0:1], z_w[..., 0:1], z_w[..., 1:]], dim=-1)
+    return z_w
+
+
+def st_where(cfg: ModelConfig, z_where: torch.Tensor) -> torch.Tensor:
+    """z_where as the spatial transformer consumes it.
+
+    With ``cfg.max_scale`` the scales are capped by a true clip (zero
+    gradient past the cap); the posterior and its KL stay on the raw
+    sample.
+    """
+    if cfg.max_scale is None:
+        return z_where
+    s = torch.clamp(z_where[..., :2], max=cfg.max_scale)
+    return torch.cat([s, z_where[..., 2:]], dim=-1)
+
+
+class StochasticTransformParam(nn.Module):
+    """LSTM features → q(z_where) parameters, loc biased to the prior mean."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.mlp = MLP(cfg.rnn_hidden, cfg.transform_hidden,
+                       dtype=compute_dtype(cfg))
+        idx = where_param_indices(cfg)
+        self.head = GaussianHead(
+            cfg, _width(cfg.rnn_hidden, cfg.transform_hidden), len(idx),
+            loc_bias=tuple(cfg.where_prior_loc[i] for i in idx))
+
+    def forward(self, h):
+        return self.head(self.mlp(h))
+
+
+class GlimpseEncoder(nn.Module):
+    """Flat glimpse → q(z_what) parameters."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        n_in = cfg.glimpse_size[0] * cfg.glimpse_size[1]
+        self.mlp = MLP(n_in, cfg.glimpse_encoder_hidden,
+                       dtype=compute_dtype(cfg))
+        self.head = GaussianHead(
+            cfg, _width(n_in, cfg.glimpse_encoder_hidden), cfg.n_what)
+
+    def forward(self, glimpse_flat):
+        return self.head(self.mlp(glimpse_flat))
+
+
+class GlimpseDecoder(nn.Module):
+    """z_what → glimpse pixels in (0, 1), in the generative dtype."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.glimpse_size = tuple(cfg.glimpse_size)
+        gh, gw = self.glimpse_size
+        self.mlp = MLP(cfg.n_what, cfg.decoder_hidden, out=gh * gw,
+                       dtype=decoder_dtype(cfg))
+
+    def forward(self, z_what):
+        x = self.mlp(z_what)
+        return torch.sigmoid(x).reshape(x.shape[:-1] + self.glimpse_size)
+
+
+class StepsPredictor(nn.Module):
+    """Step features → presence probability, floored by ``explore_eps``."""
+
+    def __init__(self, cfg: ModelConfig, in_features: int):
+        super().__init__()
+        self.cfg = cfg
+        self.mlp = MLP(in_features, cfg.steps_hidden,
+                       dtype=compute_dtype(cfg))
+        self.logit = nn.Linear(_width(in_features, cfg.steps_hidden), 1)
+
+    def forward(self, h):
+        p = torch.sigmoid(self.logit(self.mlp(h)))     # float32 layer
+        eps = self.cfg.explore_eps
+        if eps is not None:
+            p = eps + (1.0 - 2.0 * eps) * p
+        return p  # (..., 1)
+
+
+class LSTMCell(nn.Module):
+    """flax ``OptimizedLSTMCell``: gates i, f, g, o; bias on the hidden
+    path only; state ``(c, h)``.  Runs in float32."""
+
+    def __init__(self, in_features: int, hidden: int):
+        super().__init__()
+        self.ih = nn.Linear(in_features, 4 * hidden, bias=False)
+        self.hh = nn.Linear(hidden, 4 * hidden)
+
+    def forward(self, state, x):
+        c, h = state
+        i, f, g, o = (self.ih(x) + self.hh(h)).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return (c, h), h
+
+
+class BaselineMLP(nn.Module):
+    """NVIL input-dependent baseline: (image, per-step features) → (B, T).
+
+    Its first layer acts on ``concat([image broadcast over T, features])``
+    without building the concat: the weight is split at the image width,
+    the image product runs once per example and is broadcast over steps.
+    """
+
+    def __init__(self, cfg: ModelConfig, feat_features: int):
+        super().__init__()
+        self.img_features = cfg.img_size[0] * cfg.img_size[1]
+        self.mlp = MLP(self.img_features + feat_features,
+                       cfg.baseline_hidden, out=1, dtype=compute_dtype(cfg))
+
+    def forward(self, img_flat, step_features):
+        # img_flat (B, H*W); step_features (B, T, F)
+        mlp, d, da = self.mlp, self.mlp.dtype, self.img_features
+        first = mlp.dense[0]
+        w = first.weight.to(d)
+        x = (img_flat.to(d) @ w[:, :da].t())[..., None, :] \
+            + step_features.to(d) @ w[:, da:].t() + first.bias.to(d)
+        for i, layer in enumerate(mlp.dense):
+            if i:
+                x = dense(layer, x, d)
+            if i < mlp.n_hidden:
+                x = F.elu(x)
+        return x.to(torch.float32)[..., 0]
