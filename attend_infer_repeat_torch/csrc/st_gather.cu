@@ -9,10 +9,11 @@
 // sample with zero padding.  This kernel computes it in that tap form.
 //
 // What bounds it on the card: memory.  A 50x50 -> 20x20 gather over 8192
-// examples moves ~95 MB (each input read once, each output written once)
-// and needs ~0.1 GFLOP in tap form; the dense separable form would need
-// ~140 kFLOP per example (~1.1 GFLOP), which on CUDA cores is close to
-// the memory time.  The tap form keeps the arithmetic far below that.
+// examples moves at most ~95 MB (each input read once, each output written
+// once); it reads only the input pixels its nonzero taps touch, so a small
+// window moves less.  It needs ~0.1 GFLOP in tap form; the dense form
+// would need ~140 kFLOP per example (~1.1 GFLOP), which on CUDA cores is
+// close to the memory time.  The tap form keeps the arithmetic far below that.
 //
 // Design: one block per example.  The block first computes the two taps
 // of every output row and every output column (h + w coordinates, not

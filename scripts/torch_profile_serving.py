@@ -7,8 +7,8 @@ synthesizes one batch of canvases, then:
 
 - times 10 requests with the host clock around ``torch.cuda.synchronize``;
 - traces 3 requests with ``torch.profiler`` and prints the device time by
-  kernel, the kernel launches per request and the device's busy share of
-  the traced wall time.
+  kernel, the kernel launches per request and the device's busy share,
+  both of the traced wall time and of the unprofiled median wall.
 
 Prints the card's name and power limit first.  Needs one CUDA card.
 """
@@ -83,9 +83,11 @@ def main() -> int:
         by_name[e.name][1] += 1
     busy = sum(v[0] for v in by_name.values())
     print(f"traced {n_req} requests: wall {traced * 1e3:.3f} ms, device busy "
-          f"{busy / 1e3:.3f} ms ({100 * busy / (traced * 1e6):.1f}%), "
-          f"{len(kernels) / n_req:.0f} device ops per request, "
-          f"{st_kernel.launches // n_req} of them st_gather")
+          f"{busy / 1e3:.3f} ms, {len(kernels) / n_req:.0f} device ops per "
+          f"request, {st_kernel.launches // n_req} of them st_gather")
+    print(f"device busy share: {100 * busy / (traced * 1e6):.1f}% of the "
+          f"traced wall; {100 * busy / n_req / (walls[5] * 1e6):.1f}% of the "
+          f"unprofiled median wall (profiled busy per request over it)")
     print("device us per request, by kernel (top 15):")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {us / n_req:10.1f} us  {n // n_req:4d}x  "

@@ -150,3 +150,34 @@ def test_kernel_module_on_cpu():
     assert st_kernel.launches == before
     assert st_kernel.SOURCE.is_file()
     assert "extern \"C\" int st_gather(" in st_kernel.SOURCE.read_text()
+
+
+@pytest.mark.parametrize("in_shape,out_shape,paste",
+                         [((50, 50), (20, 20), False),
+                          ((20, 20), (50, 50), True)])
+def test_chip_smoke_gather_work_counts_touched_pixels(in_shape, out_shape,
+                                                      paste):
+    """The card check's bound counts the input pixels the gather depends
+    on (where the plain gather's gradient is nonzero), by 32-byte sector."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+
+    img, zw = inputs((7,), in_shape, 3)
+    zw = tst.invert_where(t(zw)) if paste else t(zw)
+    ti = t(img).requires_grad_()
+    st_kernel.st_gather_plain(ti, zw, out_shape).sum().backward()
+    needed = (ti.grad != 0).flatten()
+    nbytes, flops, touched = chip_smoke.gather_work(zw, in_shape, out_shape)
+    sectors = torch.unique(needed.nonzero()[:, 0] // 8).numel()
+    n, (h, w) = zw.shape[0], out_shape
+    assert 0 < touched < 1
+    assert touched == needed.sum().item() / needed.numel()
+    assert nbytes == 32 * sectors + 4 * n * (4 + h * w)
+    w_y, w_x = tst.st_weights(zw, out_shape, in_shape)
+    taps = torch.einsum("niq,njr->", (w_y != 0).float(), (w_x != 0).float())
+    assert flops == 2 * taps.item()
