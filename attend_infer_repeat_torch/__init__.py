@@ -1,15 +1,22 @@
-"""attend_infer_repeat_torch: Attend-Infer-Repeat serving in PyTorch on CUDA.
+"""attend_infer_repeat_torch: Attend-Infer-Repeat in PyTorch on CUDA.
 
 The PyTorch counterpart of ``attend_infer_repeat_tpu``, module for module.
 It imports neither JAX nor the JAX package.  The spatial transformer's
-bilinear gather, the model's one hand-written kernel, is CUDA C++ for
-Hopper (``csrc/st_gather.cu``), built with ``nvcc`` at first use::
+bilinear gather and its backward, the model's hand-written kernels, are
+CUDA C++ for Hopper (``csrc/st_gather.cu``, ``csrc/st_gather_bwd.cu``),
+built with ``nvcc`` at first use::
 
     import attend_infer_repeat_torch as air
     cfg = air.get_config("serving")
     model = air.AIRModel(cfg.model, use_baseline=False)      # on CUDA
     infer = air.make_infer_fn(cfg, model)
     out = infer(imgs)                                         # dict of tensors
+
+    cfg = air.get_config("canonical_fast")
+    state = air.create_train_state(cfg)                       # on CUDA
+    bank, _ = air.load_digit_bank(cfg.data.source, cfg.data.digit_size)
+    step = air.make_train_step(cfg, state.model, digit_bank=bank)
+    state, metrics = step(state)                              # one update
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise (``resolve_device``).
@@ -31,6 +38,11 @@ _EXPORTS = {
     "make_synth_fn": "data",
     "synthesize_batch": "data",
     "params_from_flax": "convert",
+    "create_train_state": "train",
+    "make_train_step": "train",
+    "make_scan_train_step": "train",
+    "make_eval_step": "train",
+    "surrogate_loss": "models.estimator",
 }
 
 __all__ = sorted(_EXPORTS) + ["__version__", "resolve_device"]

@@ -31,68 +31,18 @@
 // before the products, and so is the row-pass intermediate, as the
 // Pallas kernel rounds its first dot's result before the second.
 //
-// Coordinates are range-checked in float before floor(p) becomes an int:
-// after invert_where's eps guard a near-zero scale gives |p| ~ 1e7, which
-// would saturate the conversion.  A row or column whose p lies outside
-// (-1, in) has no nonzero weight and yields exactly 0; a NaN coordinate
-// yields NaN, as the dense form does.
+// Coordinates are range-checked in float before floor(p) becomes an int
+// (st_taps.cuh).  A row or column whose p lies outside (-1, in) has no
+// nonzero weight and yields exactly 0; a NaN coordinate yields NaN, as
+// the dense form does.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <climits>
 #include <cstdint>
+
+#include "st_taps.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kNaN = INT_MIN;                // tap index marking a NaN coord
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Source coordinate, in input pixels, of output index k on one axis:
-// p = ((scale * u + shift) + 1) * (in - 1) / 2 with u = 2k / (out - 1) - 1.
-__device__ __forceinline__ float source_coord(float scale, float shift, int k,
-                                              int out_size, int in_size) {
-  const float denom = static_cast<float>(out_size > 1 ? out_size - 1 : 1);
-  const float u = __fsub_rn(__fdiv_rn(__fmul_rn(2.0f, static_cast<float>(k)),
-                                      denom), 1.0f);
-  const float src = __fadd_rn(__fmul_rn(scale, u), shift);
-  return __fdiv_rn(__fmul_rn(__fadd_rn(src, 1.0f),
-                             static_cast<float>(in_size - 1)), 2.0f);
-}
-
-// The two taps of one output row or column: index q0 of the first, and
-// the hat weights of q0 and q0 + 1, zeroed where a tap falls outside
-// [0, in).
-struct Taps {
-  int q0;
-  float w0, w1;
-};
-
-__device__ __forceinline__ Taps axis_taps(float p, int in_size, bool bf16) {
-  Taps t{0, 0.0f, 0.0f};
-  if (p != p) {
-    t.q0 = kNaN;
-    return t;
-  }
-  if (!(p > -1.0f && p < static_cast<float>(in_size))) return t;
-  const float fl = floorf(p);
-  t.q0 = static_cast<int>(fl);               // in [-1, in - 1]
-  // 1 - |p - q| for q = q0 and q0 + 1, rounded as the dense form rounds
-  // it (1 - (1 - frac) is not always frac in f32)
-  const float w0 = __fsub_rn(1.0f, fabsf(__fsub_rn(p, fl)));
-  const float w1 = __fsub_rn(1.0f, fabsf(__fsub_rn(p, __fadd_rn(fl, 1.0f))));
-  t.w0 = (t.q0 >= 0) ? w0 : 0.0f;
-  t.w1 = (t.q0 + 1 < in_size) ? w1 : 0.0f;
-  if (bf16) {
-    t.w0 = round_bf16(t.w0);
-    t.w1 = round_bf16(t.w1);
-  }
-  return t;
-}
 
 __device__ __forceinline__ float pixel(const float* __restrict__ img, int y,
                                        int x, int in_w, float w, bool bf16) {
@@ -110,9 +60,10 @@ st_gather_kernel(const float* __restrict__ img, const float* __restrict__ zw,
   const float* __restrict__ z = zw + 4 * b;  // sx, sy, tx, ty
   for (int r = threadIdx.x; r < out_h + out_w; r += kThreads) {
     const bool row = r < out_h;
-    const float p = row ? source_coord(__ldg(z + 1), __ldg(z + 3), r, out_h, in_h)
-                        : source_coord(__ldg(z + 0), __ldg(z + 2), r - out_h,
-                                       out_w, in_w);
+    const float p = row ? source_coord(__ldg(z + 1), __ldg(z + 3),
+                                       axis_u(r, out_h), in_h)
+                        : source_coord(__ldg(z + 0), __ldg(z + 2),
+                                       axis_u(r - out_h, out_w), in_w);
     taps[r] = axis_taps(p, row ? in_h : in_w, bf16);
   }
   __syncthreads();

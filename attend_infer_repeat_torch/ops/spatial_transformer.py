@@ -15,9 +15,10 @@ Conventions:
   ``u = (x − tx)/sx``, i.e. a gather under the inverted affine.
 - Out-of-bounds samples contribute zero.
 
-``st_gather`` dispatches by device: a CUDA tensor goes to the hand-written
-kernel (``st_kernel.st_gather_cuda``), a CPU tensor to the plain separable
-einsum (``st_kernel.st_gather_plain``).
+``st_gather`` dispatches by device, forward and backward: a CUDA tensor
+goes to the hand-written kernels (``st_kernel.st_gather_cuda`` and
+``st_gather_bwd_cuda``), a CPU tensor to their plain versions, the
+separable einsum and its explicit VJP.
 """
 
 from __future__ import annotations
@@ -44,22 +45,48 @@ def _away_from_zero(s: torch.Tensor, eps: float) -> torch.Tensor:
     return torch.where(torch.abs(s) < eps, tiny, s)
 
 
-def _axis_weights(scale, shift, out_size: int, in_size: int) -> torch.Tensor:
-    """Bilinear interpolation weights for one axis: ``(..., out, in)``.
+def _source_coords(scale, shift, out_size: int):
+    """``u (out,)`` and the source coordinates ``p (..., out)`` of one axis.
 
     Output pixel ``i`` samples input coordinate
-    ``p_i = ((scale·u_i + shift) + 1)·(in−1)/2``; tap ``q`` receives the hat
-    weight ``relu(1 − |p_i − q|)``, which is zero padding by construction.
-    ``u_i = 2i/(out−1) − 1`` is computed as the kernel computes it.
+    ``p_i = ((scale·u_i + shift) + 1)·(in−1)/2`` (``in`` applied by the
+    caller); ``u_i = 2i/(out−1) − 1`` is computed as the kernels compute it.
     """
     k = torch.arange(out_size, dtype=torch.float32, device=scale.device)
     # divide by a tensor: PyTorch multiplies by the reciprocal of a scalar
     # divisor, which rounds differently from the kernel's division
     u = 2.0 * k / torch.full_like(k, max(out_size - 1, 1)) - 1.0
-    src = scale[..., None] * u + shift[..., None]            # (..., out)
+    return u, scale[..., None] * u + shift[..., None]        # (..., out)
+
+
+def _axis_weights(scale, shift, out_size: int, in_size: int) -> torch.Tensor:
+    """Bilinear interpolation weights for one axis: ``(..., out, in)``.
+
+    Tap ``q`` receives the hat weight ``relu(1 − |p_i − q|)``, which is
+    zero padding by construction.
+    """
+    _, src = _source_coords(scale, shift, out_size)
     p = (src + 1.0) * (in_size - 1) / 2.0
     q = torch.arange(in_size, dtype=torch.float32, device=scale.device)
     return torch.relu(1.0 - torch.abs(p[..., :, None] - q))   # (..., out, in)
+
+
+def _axis_weights_and_dp(scale, shift, out_size: int, in_size: int):
+    """Hat weights, their derivative w.r.t. ``p``, and ``u``.
+
+    ``w = relu(1 − |p − q|)`` as in ``_axis_weights``;
+    ``dw/dp = −sign(p − q)·1[|p − q| < 1]``, the a.e. derivative; ``u``
+    ``(out,)``, since ``dp/dscale = u·(in−1)/2`` and
+    ``dp/dshift = (in−1)/2``.
+    """
+    u, src = _source_coords(scale, shift, out_size)
+    p = (src + 1.0) * (in_size - 1) / 2.0
+    q = torch.arange(in_size, dtype=torch.float32, device=scale.device)
+    d = p[..., :, None] - q                                    # (..., out, in)
+    w = torch.relu(1.0 - torch.abs(d))
+    dw_dp = torch.where(torch.abs(d) < 1.0, -torch.sign(d),
+                        torch.zeros_like(d))
+    return w, dw_dp, u
 
 
 def st_weights(z_where: torch.Tensor, out_shape, in_shape):
@@ -77,7 +104,8 @@ def st_gather(image: torch.Tensor, z_where: torch.Tensor,
 
     ``image (..., H, W)``, ``z_where (..., 4)`` → ``(..., h, w)``.  The model
     runs the spatial transformer on f32 operands in every dtype mix, as
-    the JAX package's default ``st_method="xla"`` does.
+    the JAX package's default ``st_method="xla"`` does.  Differentiable in
+    both arguments through ``st_kernel.STGather``.
     """
     from attend_infer_repeat_torch.ops import st_kernel
 
@@ -85,11 +113,8 @@ def st_gather(image: torch.Tensor, z_where: torch.Tensor,
     img = image.reshape((-1,) + tuple(image.shape[-2:])).to(torch.float32)
     zw = z_where.reshape(-1, 4).to(torch.float32)
     glimpse_shape = tuple(glimpse_shape)
-    if img.is_cuda:
-        out = st_kernel.st_gather_cuda(img.contiguous(), zw.contiguous(),
-                                       glimpse_shape)
-    else:
-        out = st_kernel.st_gather_plain(img, zw, glimpse_shape)
+    out = st_kernel.STGather.apply(img.contiguous(), zw.contiguous(),
+                                   glimpse_shape)
     return out.reshape(tuple(batch_shape) + glimpse_shape)
 
 

@@ -1,16 +1,20 @@
-"""The bilinear gather kernel on the card: build, binding, count, plain twin.
+"""The gather kernels on the card: build, binding, counts, plain twins.
 
 ``csrc/st_gather.cu`` is the hand-written CUDA counterpart of the Pallas
-``_gather_kernel`` (``attend_infer_repeat_tpu/ops/pallas_st.py``).  This
-module compiles it with ``nvcc`` for ``sm_90a`` at first use into a
-shared library with a plain C interface (cached by source hash under
-``attend_infer_repeat_torch/_build/``), loads it with ``ctypes`` and
-launches it on PyTorch's current stream.
+``_gather_kernel`` and ``csrc/st_gather_bwd.cu`` of its backward
+``_gather_bwd_kernel`` (both in ``attend_infer_repeat_tpu/ops/pallas_st.py``).
+This module compiles both, with one ``nvcc`` call for ``sm_90a`` at first
+use, into one shared library with a plain C interface (cached by a hash
+of all sources under ``attend_infer_repeat_torch/_build/``), loads it
+with ``ctypes`` and launches on PyTorch's current stream.
 
-``st_gather_cuda`` takes CUDA tensors only and launches the kernel or
-raises; ``st_gather_plain`` is the same function in plain PyTorch (the
-separable einsum with materialized hat weights), used for CPU tensors and
-as the kernel's yardstick on the card.  ``launches`` counts kernel
+``st_gather_cuda`` and ``st_gather_bwd_cuda`` take CUDA tensors only and
+launch their kernel or raise; ``st_gather_plain`` and
+``st_gather_bwd_plain`` are the same functions in plain PyTorch (dense
+einsums with materialized hat weights), used for CPU tensors and as the
+kernels' yardsticks on the card.  ``STGather`` is the autograd glue: its
+forward and backward take the kernel for CUDA tensors and the plain
+version for CPU tensors.  ``launches`` and ``bwd_launches`` count kernel
 launches, and nothing else.
 """
 
@@ -25,16 +29,25 @@ from pathlib import Path
 
 import torch
 
-from attend_infer_repeat_torch.ops.spatial_transformer import st_weights
+from attend_infer_repeat_torch.ops.spatial_transformer import (
+    _axis_weights_and_dp,
+    st_weights,
+)
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "st_gather.cu"
+BWD_SOURCE = _PKG / "csrc" / "st_gather_bwd.cu"
+SOURCES = (_PKG / "csrc" / "st_taps.cuh", SOURCE, BWD_SOURCE)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# dynamic shared memory one block may use on Hopper (227 KB)
+MAX_SMEM = 232_448
 
-#: Number of kernel launches since the count was last set to 0.
+#: Number of forward kernel launches since the count was last set to 0.
 launches = 0
+#: Number of backward kernel launches since the count was last set to 0.
+bwd_launches = 0
 _lib = None
 
 
@@ -42,27 +55,29 @@ def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
         raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build csrc/st_gather.cu")
+                           "build the kernels in csrc/")
     return nvcc
 
 
 def build() -> Path:
-    """Compile the kernel (once per source version); return the library.
+    """Compile the kernels (once per source version); return the library.
 
     The compiler's report (``-Xptxas -v``: registers, spills) is kept
     beside the library as ``<name>.log``.
     """
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libst_gather_{tag}.so"
+    digest = hashlib.sha256()
+    for src in SOURCES:
+        digest.update(src.read_bytes())
+    lib = BUILD_DIR / f"libst_gather_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE),
+                           str(BWD_SOURCE)], capture_output=True, text=True)
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {SOURCE.parent}:\n{proc.stderr}")
     os.replace(tmp, lib)
     return lib
 
@@ -71,13 +86,20 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.st_gather.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # img zw out
-            ctypes.c_longlong,                                    # n
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int,                                         # bf16
-            ctypes.c_void_p]                                      # stream
-        lib.st_gather.restype = ctypes.c_int
+            ptr, ptr, ptr,                          # img zw out
+            ctypes.c_longlong,                      # n
+            i32, i32, i32, i32,                     # in_h in_w out_h out_w
+            i32,                                    # bf16
+            ptr]                                    # stream
+        lib.st_gather.restype = i32
+        lib.st_gather_bwd.argtypes = [
+            ptr, ptr, ptr, ptr, ptr,                # img zw g gimg gzw
+            ctypes.c_longlong, i32, i32, i32, i32, i32, ptr]
+        lib.st_gather_bwd.restype = i32
+        lib.st_gather_bwd_smem.argtypes = [i32, i32, i32, i32, i32]
+        lib.st_gather_bwd_smem.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -89,32 +111,34 @@ def _check_compute_dtype(compute_dtype: str) -> bool:
     return compute_dtype == "bfloat16"
 
 
+def _check_cuda(name: str, **tensors) -> None:
+    """Device, type and contiguity checks shared by both wrappers."""
+    ts = list(tensors.values())
+    if not all(t.is_cuda and t.device == ts[0].device for t in ts):
+        raise ValueError(f"{name} takes CUDA tensors on one device")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"{name} takes float32, got "
+                        f"{', '.join(str(t.dtype) for t in ts)}")
+    img, zw = tensors["img"], tensors["zw"]
+    if img.dim() != 3 or tuple(zw.shape) != (img.shape[0], 4):
+        raise ValueError(f"want img (N, H, W) and zw (N, 4), got "
+                         f"{tuple(img.shape)} and {tuple(zw.shape)}")
+    if img.shape[0] >= 2 ** 31:
+        raise ValueError(f"{name} takes N < 2**31 (one block each)")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
 def st_gather_cuda(img: torch.Tensor, zw: torch.Tensor, out_shape,
                    compute_dtype: str = "float32") -> torch.Tensor:
     """Launch the kernel: ``img (N, H, W)``, ``zw (N, 4)`` → ``(N, h, w)``.
 
     Both inputs must be contiguous float32 CUDA tensors on one device.
-    Forward only: the backward kernel is not ported yet, so a call that
-    autograd would have to differentiate raises.
+    Not differentiable by itself: ``STGather`` wraps it.
     """
     global launches
     bf16 = _check_compute_dtype(compute_dtype)
-    if not (img.is_cuda and zw.is_cuda and img.device == zw.device):
-        raise ValueError("st_gather_cuda takes CUDA tensors on one device")
-    if img.dtype != torch.float32 or zw.dtype != torch.float32:
-        raise TypeError(f"st_gather_cuda takes float32, got {img.dtype} "
-                        f"and {zw.dtype}")
-    if img.dim() != 3 or tuple(zw.shape) != (img.shape[0], 4):
-        raise ValueError(f"want img (N, H, W) and zw (N, 4), got "
-                         f"{tuple(img.shape)} and {tuple(zw.shape)}")
-    if img.shape[0] >= 2 ** 31:
-        raise ValueError("st_gather_cuda takes N < 2**31 (one block each)")
-    if not (img.is_contiguous() and zw.is_contiguous()):
-        raise ValueError("st_gather_cuda takes contiguous tensors")
-    if torch.is_grad_enabled() and (img.requires_grad or zw.requires_grad):
-        raise NotImplementedError(
-            "the gather's backward kernel is not ported yet; call under "
-            "torch.inference_mode() or torch.no_grad()")
+    _check_cuda("st_gather_cuda", img=img, zw=zw)
     n, in_h, in_w = img.shape
     out_h, out_w = (int(s) for s in out_shape)
     out = torch.empty((n, out_h, out_w), dtype=torch.float32,
@@ -147,3 +171,115 @@ def st_gather_plain(img: torch.Tensor, zw: torch.Tensor, out_shape,
         tmp = rnd(torch.matmul(rnd(w_y), rnd(img)))
         return torch.matmul(tmp, rnd(w_x).transpose(-1, -2))
     return torch.matmul(torch.matmul(w_y, img), w_x.transpose(-1, -2))
+
+
+def st_gather_bwd_cuda(img: torch.Tensor, zw: torch.Tensor, g: torch.Tensor,
+                       out_shape, compute_dtype: str = "float32",
+                       need_img: bool = True):
+    """Launch the backward kernel: the VJP of ``st_gather_cuda``.
+
+    ``img (N, H, W)``, ``zw (N, 4)`` and the output cotangent
+    ``g (N, h, w)`` → ``(g_img (N, H, W) or None, g_zw (N, 4))``, with
+    ``g_zw`` ordered ``(d_sx, d_sy, d_tx, d_ty)``.  ``need_img=False``
+    skips ``g_img`` (returned as None).  All three inputs must be
+    contiguous float32 CUDA tensors on one device.
+    """
+    global bwd_launches
+    bf16 = _check_compute_dtype(compute_dtype)
+    _check_cuda("st_gather_bwd_cuda", img=img, zw=zw, g=g)
+    n, in_h, in_w = img.shape
+    out_h, out_w = (int(s) for s in out_shape)
+    if tuple(g.shape) != (n, out_h, out_w):
+        raise ValueError(f"want g {(n, out_h, out_w)}, got {tuple(g.shape)}")
+    dev = img.device
+    g_img = (torch.empty((n, in_h, in_w), dtype=torch.float32, device=dev)
+             if need_img else None)
+    g_zw = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    if n == 0 or out_h * out_w == 0 or in_h * in_w == 0:
+        if need_img:
+            g_img.zero_()
+        return g_img, g_zw.zero_()
+    lib = _load()
+    smem = lib.st_gather_bwd_smem(in_h, in_w, out_h, out_w, int(need_img))
+    if smem > MAX_SMEM:
+        raise ValueError(f"st_gather_bwd_cuda: {in_h}x{in_w} -> "
+                         f"{out_h}x{out_w} needs {smem} bytes of shared "
+                         f"memory, over the {MAX_SMEM} a block can use")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.st_gather_bwd(
+            img.data_ptr(), zw.data_ptr(), g.data_ptr(),
+            g_img.data_ptr() if need_img else None, g_zw.data_ptr(),
+            n, in_h, in_w, out_h, out_w, int(bf16), stream)
+    if err:
+        raise RuntimeError(f"st_gather_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    bwd_launches += 1
+    return g_img, g_zw
+
+
+def st_gather_bwd_plain(img: torch.Tensor, zw: torch.Tensor, g: torch.Tensor,
+                        out_shape, compute_dtype: str = "float32",
+                        need_img: bool = True):
+    """The backward kernel's function in plain PyTorch.
+
+    The five contractions of the Pallas ``_gather_bwd_kernel`` on
+    materialized weights and their ``dW/dp``.  ``bfloat16`` mode rounds
+    each contraction's two operands to bf16 and accumulates in f32, as
+    the Pallas kernel's ``dot`` does.
+    """
+    bf16 = _check_compute_dtype(compute_dtype)
+    (out_h, out_w), (in_h, in_w) = out_shape, img.shape[-2:]
+    w_y, dwy, u_y = _axis_weights_and_dp(zw[:, 1], zw[:, 3], out_h, in_h)
+    w_x, dwx, u_x = _axis_weights_and_dp(zw[:, 0], zw[:, 2], out_w, in_w)
+
+    def dot(a, b):
+        if bf16:
+            a = a.to(torch.bfloat16).to(torch.float32)
+            b = b.to(torch.bfloat16).to(torch.float32)
+        return torch.matmul(a, b)
+
+    g_img = None
+    if need_img:
+        # g_img[j,l] = Σ_i w_y[i,j] Σ_k g[i,k] w_x[k,l]
+        g_img = dot(dot(w_y.transpose(-1, -2), g), w_x)        # (N, H, W)
+    tmp = dot(w_y, img)                                        # (N, h, W)
+    g_wx = dot(g.transpose(-1, -2), tmp)                       # (N, w, W)
+    gx = dot(img, w_x.transpose(-1, -2))                       # (N, H, w)
+    g_wy = dot(g, gx.transpose(-1, -2))                        # (N, h, H)
+    cy, cx = (in_h - 1) / 2.0, (in_w - 1) / 2.0
+    gy = torch.sum(g_wy * dwy, dim=-1)                         # (N, h)
+    gxw = torch.sum(g_wx * dwx, dim=-1)                        # (N, w)
+    g_zw = torch.stack([torch.sum(gxw * u_x, dim=-1) * cx,
+                        torch.sum(gy * u_y, dim=-1) * cy,
+                        torch.sum(gxw, dim=-1) * cx,
+                        torch.sum(gy, dim=-1) * cy], dim=-1)
+    return g_img, g_zw
+
+
+class STGather(torch.autograd.Function):
+    """``st_gather`` with its backward: ``(img (N,H,W), zw (N,4)) → (N,h,w)``.
+
+    Saves ``(img, zw)`` as the Pallas ``custom_vjp`` keeps its residuals.
+    CUDA tensors go to the kernels, CPU tensors to the plain versions, in
+    f32 (the model runs the spatial transformer on f32 operands).  The
+    image gradient is computed only when autograd asks for it (the attend
+    step's gather of the data image needs only ``g_zw``).
+    """
+
+    @staticmethod
+    def forward(ctx, img, zw, out_shape):
+        ctx.save_for_backward(img, zw)
+        ctx.out_shape = tuple(out_shape)
+        if img.is_cuda:
+            return st_gather_cuda(img, zw, ctx.out_shape)
+        return st_gather_plain(img, zw, ctx.out_shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        img, zw = ctx.saved_tensors
+        need_img, need_zw = ctx.needs_input_grad[:2]
+        bwd = st_gather_bwd_cuda if g.is_cuda else st_gather_bwd_plain
+        g_img, g_zw = bwd(img, zw, g.contiguous(), ctx.out_shape,
+                          need_img=need_img)
+        return g_img, (g_zw if need_zw else None), None

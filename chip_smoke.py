@@ -1,22 +1,35 @@
-"""Drive the PyTorch port of AIR serving on one NVIDIA GPU and check it.
+"""Drive the PyTorch port of AIR (serving and training) on one NVIDIA GPU
+and check it.
 
     python3 chip_smoke.py
 
 Phases, in order (any failure raises and exits non-zero):
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the gather kernel (``csrc/st_gather.cu``) with nvcc;
-3. kernel against plain: the kernel and its plain PyTorch version on the
-   same inputs at the serving path's shapes (gather 50×50→20×20, paste
-   20×20→50×50, synthesis paste 16×16→50×50), f32 and bf16 modes, edge
-   cases; times of the kernel, the plain version and one PyTorch library
-   call of the same function (``grid_sample``), beside the bound of the
-   bytes and FLOP that this run's inputs need (``gather_work``);
-4. the slice: canvas synthesis, serving requests through
+2. build: compiles the gather kernel and its backward (``csrc/``) with one
+   nvcc call;
+3. kernel against plain: the gather kernel and its plain PyTorch version
+   on the same inputs at the serving and train paths' shapes (gather
+   50×50→20×20, paste 20×20→50×50, synthesis paste 16×16→50×50), f32 and
+   bf16 modes, edge cases; times of the kernel, the plain version and one
+   PyTorch library call of the same function (``grid_sample``), beside the
+   bound of the bytes and FLOP that this run's inputs need
+   (``gather_work``);
+3b. the backward kernel against its plain version in the same way, at
+   the train step's shapes and at N = 8192, ragged N and an odd shape;
+   edge cases; two runs bit-identical; the library call is
+   ``grid_sample``'s backward;
+4. the serving slice: canvas synthesis, serving requests through
    ``make_infer_fn`` for the ``serving`` preset and the ``canonical_fast``
    model, ``make_generate_fn``; launch counts read around that run; one
    request rerun through the plain spatial transformer and compared;
-5. a ``kernels`` JSON line, then the last line
+5. the train step: ``canonical_fast`` at batch 1024 through
+   ``create_train_state`` and ``make_train_step`` (warm-up, then timed
+   steps), then one ``make_eval_step``; launch counts read around that
+   run (per step: 1 synthesis paste, 6 forward, 6 backward launches);
+6. one step's loss and gradients through the kernels and through the
+   plain spatial transformer, for ``canonical`` and ``canonical_fast``;
+7. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Needs one card; stops no process it did not
@@ -34,10 +47,24 @@ import time
 import torch
 
 N_SERVE = 8192
+N_TRAIN = 1024          # the canonical_fast train step's batch
+SLEEP_CYCLES = 50_000_000   # ~30 ms at the H100's ~1.7 GHz
 # Kernel against plain.  The kernel rounds as its plain version does (bit
 # for bit at these shapes), so the bf16 limit sits well under one bf16 ulp
 # of a pixel (~4e-3): a kernel that skipped a bf16 rounding would fail it.
 F32_TOL, BF16_TOL = 1e-5, 1e-3
+# Backward kernel against plain, f32: g_img and g_zw max abs err over
+# max(1, max|plain|).  Each g_zw sums up to 2500·4 products with
+# cancellation, in another order than the plain matmuls.  bf16: rtol 5e-2,
+# atol 2e-2·max(1, max|plain|), the Pallas kernel's own bound.
+BWD_F32_TOL = (1e-5, 1e-4)
+# One step through the kernels against the plain ST: (loss rel err,
+# largest per-tensor gradient rel L2 err).  canonical is f32 end to end;
+# in canonical_fast the forward kernel is bit-equal to plain, and an f32
+# ulp of backward difference entering the bf16 matmuls' backward can flip
+# a bf16 rounding.  The gradient limits were 1e-4 and 1e-2; measured on an
+# H100 3.78e-7 and 2.66e-4, so they are tightened to about twice that.
+STEP_LIMITS = {"canonical": (1e-6, 1e-6), "canonical_fast": (0.0, 5e-4)}
 
 # Memory rate (bytes/s) and f32 CUDA-core peak (FLOP/s) of the H100 SXM
 # (NVIDIA data sheet, dense, at the full power limit).
@@ -59,12 +86,19 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, iters=20, warmup=3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events)."""
+    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events).
+
+    The stream first runs a sleep kernel of ~30 ms, long enough for the
+    host to queue every launch before the first one starts, so the events
+    time the device running them back to back, not the host's launch rate
+    (at N = 1024 a call's host side takes longer than its kernel).
+    """
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -120,20 +154,26 @@ def gather_work(zw, in_shape, out_shape):
 def kernel_phase(st_kernel, invert_where, bw, f32_peak):
     """Kernel against plain at the serving path's shapes; returns rows."""
     gen = torch.Generator("cuda").manual_seed(0)
-    cases = [  # name, N, input, output, paste?
-        ("gather 50x50->20x20", N_SERVE, (50, 50), (20, 20), False),
-        ("gather 50x50->20x20", N_SERVE - 1, (50, 50), (20, 20), False),
-        ("paste 20x20->50x50", N_SERVE, (20, 20), (50, 50), True),
-        ("paste 20x20->50x50", N_SERVE - 1, (20, 20), (50, 50), True),
-        ("synth paste 16x16->50x50", 2 * N_SERVE, (16, 16), (50, 50), True),
-        ("generate paste 20x20->50x50", 3 * N_SERVE, (20, 20), (50, 50),
+    cases = [  # name, N, input, output, paste?, timed?
+        ("gather 50x50->20x20", N_SERVE, (50, 50), (20, 20), False, True),
+        ("gather 50x50->20x20", N_SERVE - 1, (50, 50), (20, 20), False, True),
+        ("paste 20x20->50x50", N_SERVE, (20, 20), (50, 50), True, True),
+        ("paste 20x20->50x50", N_SERVE - 1, (20, 20), (50, 50), True, True),
+        ("synth paste 16x16->50x50", 2 * N_SERVE, (16, 16), (50, 50), True,
          True),
-        ("gather 50x50->20x20", 1, (50, 50), (20, 20), False),
-        ("gather 50x50->20x20", 5, (50, 50), (20, 20), False),
-        ("paste 20x20->50x50", 17, (20, 20), (50, 50), True),
+        ("generate paste 20x20->50x50", 3 * N_SERVE, (20, 20), (50, 50),
+         True, True),
+        # the train step's shapes (canonical_fast, batch 1024)
+        ("gather 50x50->20x20", N_TRAIN, (50, 50), (20, 20), False, True),
+        ("paste 20x20->50x50", N_TRAIN, (20, 20), (50, 50), True, True),
+        ("synth paste 16x16->50x50", 2 * N_TRAIN, (16, 16), (50, 50), True,
+         True),
+        ("gather 50x50->20x20", 1, (50, 50), (20, 20), False, False),
+        ("gather 50x50->20x20", 5, (50, 50), (20, 20), False, False),
+        ("paste 20x20->50x50", 17, (20, 20), (50, 50), True, False),
     ]
     rows = []
-    for name, n, in_shape, out_shape, paste in cases:
+    for name, n, in_shape, out_shape, paste, timed_case in cases:
         img = torch.rand((n,) + in_shape, generator=gen, device="cuda")
         zw = random_where(n, gen)
         if paste:
@@ -149,7 +189,7 @@ def kernel_phase(st_kernel, invert_where, bw, f32_peak):
                                      f"max abs err {errs[mode]} > {tol}")
         row = {"case": name, "n": n, "max_abs_err": errs["float32"],
                "max_abs_err_bf16": errs["bfloat16"]}
-        if n >= N_SERVE - 1:
+        if timed_case:
             nbytes, flops, row["touched"] = gather_work(zw, in_shape,
                                                         out_shape)
             row.update(
@@ -243,7 +283,7 @@ def slice_phase(air, st_kernel, smi):
     gen = torch.Generator("cuda").manual_seed(0)
     per_forward = 2 * cfg.model.max_steps   # one gather + one paste a step
 
-    st_kernel.launches = 0
+    st_kernel.launches = st_kernel.bwd_launches = 0
     expected = 0
 
     def expect(delta, what):
@@ -295,6 +335,8 @@ def slice_phase(air, st_kernel, smi):
         print(f"  generate {r}: {dt * 1e3:.2f} ms, {N_SERVE / dt:.1f} img/s",
               flush=True)
     launches = st_kernel.launches
+    if st_kernel.bwd_launches:
+        raise AssertionError("serving launched the backward kernel")
     print(f"  main path: {launches} kernel launches "
           f"({per_forward} per forward of one tile)", flush=True)
     print(f"  infer img/s at batch {N_SERVE} (serving, requests 1-3 median): "
@@ -327,6 +369,291 @@ def slice_phase(air, st_kernel, smi):
         raise AssertionError("the slice through the kernel disagrees with "
                              "the plain spatial transformer")
     return launches
+
+def gather_bwd_work(zw, in_shape, out_shape, need_img):
+    """Bytes and FLOP that this gather's backward needs on these ``zw``.
+
+    The forward's touched input pixels and ``zw`` (``gather_work``), the
+    cotangent ``g`` read once (the size of the forward's output), ``g_zw``
+    written, and ``g_img`` written once when asked for.  FLOP: per nonzero
+    tap pair, the two zw sums take two multiply-adds each and ``g_img``
+    two more.
+    """
+    nbytes, flops, touched = gather_work(zw, in_shape, out_shape)
+    n = zw.shape[0]
+    nbytes += 16 * n + (4 * n * in_shape[0] * in_shape[1] if need_img else 0)
+    return nbytes, flops * (6 if need_img else 4), touched
+
+
+def grid_sample_backward(img, zw, out_shape, g, need_img):
+    """``fn()`` that runs the backward of ``grid_sample_gather`` as one
+    PyTorch library call (timed, never used by the port): the gradient of
+    ``grid_sample`` on the affine grid w.r.t. ``theta`` (and the image)."""
+    import torch.nn.functional as F
+
+    n = img.shape[0]
+    theta = torch.zeros((n, 2, 3), device=img.device)
+    theta[:, 0, 0], theta[:, 0, 2] = zw[:, 0], zw[:, 2]
+    theta[:, 1, 1], theta[:, 1, 2] = zw[:, 1], zw[:, 3]
+    theta.requires_grad_()
+    x = img[:, None].detach().requires_grad_(need_img)
+    grid = F.affine_grid(theta, (n, 1) + tuple(out_shape), align_corners=True)
+    out = F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=True)[:, 0]
+    wrt = (x, theta) if need_img else (theta,)
+    return lambda: torch.autograd.grad(out, wrt, g, retain_graph=True)
+
+
+def bwd_errors(k, p, bf16):
+    """``(g_img err, g_zw err, within limits?)``: abs errors, and the
+    limit check of each output against the scale of its plain version."""
+    errs, ok = [], True
+    for a, b, rel in zip(k, p, BWD_F32_TOL):
+        if b is None:
+            errs.append(0.0)
+            continue
+        scale = max(1.0, b.abs().max().item())
+        errs.append((a - b).abs().max().item())
+        if bf16:
+            ok &= torch.allclose(a, b, rtol=5e-2, atol=2e-2 * scale)
+        else:
+            ok &= errs[-1] <= rel * scale
+    return errs[0], errs[1], ok
+
+
+def bwd_phase(st_kernel, invert_where, bw, f32_peak):
+    """The backward kernel against plain at the train step's shapes."""
+    gen = torch.Generator("cuda").manual_seed(1)
+    cases = [  # name, N, input, output, paste?, g_img?, timed?
+        ("gather bwd 50x50->20x20, g_zw only (as the step)", N_TRAIN,
+         (50, 50), (20, 20), False, False, True),
+        ("gather bwd 50x50->20x20", N_TRAIN, (50, 50), (20, 20), False, True,
+         True),
+        ("paste bwd 20x20->50x50", N_TRAIN, (20, 20), (50, 50), True, True,
+         True),
+        ("gather bwd 50x50->20x20, g_zw only (as the step)", N_SERVE,
+         (50, 50), (20, 20), False, False, True),
+        ("gather bwd 50x50->20x20", N_SERVE, (50, 50), (20, 20), False, True,
+         True),
+        ("paste bwd 20x20->50x50", N_SERVE, (20, 20), (50, 50), True, True,
+         True),
+        ("gather bwd 50x50->20x20", 1, (50, 50), (20, 20), False, True,
+         False),
+        ("gather bwd 50x50->20x20", 5, (50, 50), (20, 20), False, True,
+         False),
+        ("paste bwd 20x20->50x50", 17, (20, 20), (50, 50), True, True,
+         False),
+        ("paste bwd 20x20->50x50", N_TRAIN - 1, (20, 20), (50, 50), True,
+         True, False),
+        ("gather bwd 25x31->9x13", 7, (25, 31), (9, 13), False, True, False),
+    ]
+    rows = []
+    for name, n, in_shape, out_shape, paste, need_img, timed_case in cases:
+        img = torch.rand((n,) + in_shape, generator=gen, device="cuda")
+        zw = random_where(n, gen)
+        if paste:
+            zw = invert_where(zw).contiguous()
+        g = torch.randn((n,) + out_shape, generator=gen, device="cuda")
+        row = {"case": name, "n": n}
+        for mode in ("float32", "bfloat16"):
+            k = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape, mode,
+                                             need_img)
+            p = st_kernel.st_gather_bwd_plain(img, zw, g, out_shape, mode,
+                                              need_img)
+            again = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape, mode,
+                                                 need_img)
+            torch.cuda.synchronize()
+            e_img, e_zw, ok = bwd_errors(k, p, mode == "bfloat16")
+            if not ok:
+                raise AssertionError(f"{name} N={n} {mode}: backward kernel "
+                                     f"vs plain err g_img {e_img} g_zw "
+                                     f"{e_zw} over the limit")
+            if not all(a is b or torch.equal(a, b) for a, b in zip(k, again)):
+                raise AssertionError(f"{name} N={n} {mode}: two runs of the "
+                                     f"backward kernel differ")
+            tag = "" if mode == "float32" else "_bf16"
+            row["max_abs_err" + tag] = max(e_img, e_zw)
+            row["err_g_img" + tag], row["err_g_zw" + tag] = e_img, e_zw
+        msg = (f"  {name} N={n}: err f32 g_img {row['err_g_img']:.3g} g_zw "
+               f"{row['err_g_zw']:.3g}, bf16 g_img {row['err_g_img_bf16']:.3g}"
+               f" g_zw {row['err_g_zw_bf16']:.3g}; deterministic")
+        if timed_case:
+            nbytes, flops, row["touched"] = gather_bwd_work(
+                zw, in_shape, out_shape, need_img)
+            library = grid_sample_backward(img, zw, out_shape, g, need_img)
+            row.update(
+                ms=cuda_ms(lambda: st_kernel.st_gather_bwd_cuda(
+                    img, zw, g, out_shape, need_img=need_img)),
+                plain_ms=cuda_ms(lambda: st_kernel.st_gather_bwd_plain(
+                    img, zw, g, out_shape, need_img=need_img)),
+                library_ms=cuda_ms(library),
+                bytes_ms=nbytes / bw * 1e3, ops_ms=flops / f32_peak * 1e3)
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["ops_ms"]
+                               else "operations")
+            msg += (f"; kernel {row['ms'] * 1e3:.2f} us, plain "
+                    f"{row['plain_ms'] * 1e3:.2f} us, grid_sample backward "
+                    f"{row['library_ms'] * 1e3:.2f} us, bound "
+                    f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}; "
+                    f"{nbytes / 1e6:.2f} MB, input touched "
+                    f"{100 * row['touched']:.1f}%)")
+        print(msg, flush=True)
+        rows.append(row)
+
+    # every sample out of range, and near-zero-scale pastes: exactly zero
+    img = torch.rand((64, 20, 20), generator=gen, device="cuda")
+    zw = torch.tensor([[0.5, 0.5, 5.0, 5.0], [0.5, 0.5, -5.0, -5.0]],
+                      device="cuda").repeat(32, 1)
+    out = st_kernel.st_gather_bwd_cuda(
+        img, zw, torch.randn((64, 8, 8), generator=gen, device="cuda"),
+        (8, 8))
+    inv = invert_where(torch.tensor(
+        [[0.0, 0.0, 0.01, 0.01], [1e-9, -1e-9, 0.0, 0.0]],
+        device="cuda").repeat(32, 1)).contiguous()
+    out += st_kernel.st_gather_bwd_cuda(
+        img, inv, torch.randn((64, 50, 50), generator=gen, device="cuda"),
+        (50, 50))
+    if not all(t.abs().max().item() == 0.0 for t in out):
+        raise AssertionError("out-of-range backward is not exactly 0")
+    print("  out-of-range windows and near-zero-scale pastes: both "
+          "gradients exactly 0", flush=True)
+    return rows
+
+
+def check_metrics(metrics, what):
+    bad = [k for k, v in metrics.items()
+           if not torch.isfinite(v).all().item()]
+    if bad:
+        raise AssertionError(f"{what}: metrics not finite: {bad}")
+
+
+def train_phase(air, st_kernel, smi, bank):
+    """canonical_fast train steps at batch 1024, then one eval step;
+    returns the forward and backward kernel launches of that run."""
+    import warnings
+
+    from attend_infer_repeat_torch.data import make_synth_fn
+
+    fast = air.get_config("canonical_fast")
+    state = air.create_train_state(fast, seed=0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        step = air.make_train_step(fast, state.model, digit_bank=bank)
+    for w in caught:
+        print(f"  warning: {w.message}", flush=True)
+    synth = make_synth_fn(fast.data, bank)
+    eval_step = air.make_eval_step(fast, state.model)
+    start = {k: v.clone() for k, v in state.model.state_dict().items()}
+    n_cells = fast.model.max_steps
+    per_step = (1 + 2 * n_cells, 2 * n_cells)     # synthesis + gather/paste
+    warm, timed_steps = 3, 20
+
+    st_kernel.launches = st_kernel.bwd_launches = 0
+    for i in range(warm):
+        state, m = step(state)
+        counts = (st_kernel.launches, st_kernel.bwd_launches)
+        if counts != ((i + 1) * per_step[0], (i + 1) * per_step[1]):
+            raise AssertionError(f"train step {i}: launches {counts}, "
+                                 f"expected {per_step} per step")
+        check_metrics(m, f"train step {i}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rows = []
+    for _ in range(timed_steps):
+        state, m = step(state)
+        rows.append(m)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t) / timed_steps
+    for i, m in enumerate(rows):
+        check_metrics(m, f"train step {warm + i}")
+    n_steps = warm + timed_steps
+    counts = (st_kernel.launches, st_kernel.bwd_launches)
+    if counts != (n_steps * per_step[0], n_steps * per_step[1]):
+        raise AssertionError(f"{n_steps} train steps: launches {counts}")
+    moved = max((v - start[k]).abs().max().item()
+                for k, v in state.model.state_dict().items())
+    if not (moved > 0 and state.step == n_steps):
+        raise AssertionError("the train steps changed no parameter")
+    last = rows[-1]
+    print(f"  {n_steps} train steps (canonical_fast, batch {N_TRAIN}): "
+          f"{per_step[0]} forward and {per_step[1]} backward launches per "
+          f"step; last loss {last['loss'].item():.1f}, elbo "
+          f"{last['elbo'].item():.2f}, grad_norm "
+          f"{last['grad_norm'].item():.1f}; parameters moved up to "
+          f"{moved:.3g}", flush=True)
+    print(f"  train step {dt * 1e3:.3f} ms (mean of {timed_steps} after "
+          f"{warm} warm-up), {N_TRAIN / dt:.1f} train img/s at batch "
+          f"{N_TRAIN} on {smi}", flush=True)
+
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    gen = torch.Generator("cuda").manual_seed(2)
+    imgs, nums = synth(N_TRAIN, gen)
+    metrics, out = eval_step(state, imgs, nums, gen)
+    check_metrics(metrics, "eval step")
+    if not all(torch.equal(v, before[k])
+               for k, v in state.model.state_dict().items()):
+        raise AssertionError("the eval step changed a parameter")
+    counts = (st_kernel.launches, st_kernel.bwd_launches)
+    if counts != (n_steps * per_step[0] + 1 + 2 * n_cells,
+                  n_steps * per_step[1]):
+        raise AssertionError(f"eval step: launches {counts}")
+    print(f"  eval step: count accuracy "
+          f"{metrics['count_accuracy_mode'].item():.4f} (mode, random "
+          f"weights), parameters unchanged", flush=True)
+    return counts
+
+
+def plain_step_phase(air, st_kernel, limits):
+    """One step's loss and gradients through the kernels and through the
+    plain ST, same parameters, batch and noise; returns the errors."""
+    from attend_infer_repeat_torch.data import load_digit_bank, make_synth_fn
+    from attend_infer_repeat_torch.train import prior_success_prob
+    from attend_infer_repeat_torch.train.step import (
+        kl_warmup, make_objective_loss_fn)
+
+    results = {}
+    for name in ("canonical", "canonical_fast"):
+        cfg = air.get_config(name)
+        n = cfg.train.batch_size
+        bank, _ = load_digit_bank(cfg.data.source, cfg.data.digit_size)
+        gen = torch.Generator("cuda").manual_seed(3)
+        imgs, _ = make_synth_fn(cfg.data, bank)(n, gen)
+        imgs = imgs.clone()
+        state = air.create_train_state(cfg, seed=1)
+        noise = state.model.sample_noise(n, gen)
+        names, params = zip(*state.model.named_parameters())
+
+        def grads():
+            loss, _ = make_objective_loss_fn(
+                cfg, state.model, imgs, None, prior_success_prob(cfg.prior, 0),
+                kl_warmup(cfg, 0), noise)()
+            gs = torch.autograd.grad(loss, params, allow_unused=True)
+            return loss.item(), [torch.zeros_like(p) if g is None else g
+                                 for p, g in zip(params, gs)]
+
+        loss_k, g_k = grads()
+        kernels = (st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda)
+        st_kernel.st_gather_cuda = st_kernel.st_gather_plain
+        st_kernel.st_gather_bwd_cuda = st_kernel.st_gather_bwd_plain
+        try:
+            loss_p, g_p = grads()
+        finally:
+            st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda = kernels
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        errs = {nm: ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+                for nm, a, b in zip(names, g_k, g_p)}
+        worst = max(errs, key=errs.get)
+        results[name] = (loss_rel, errs[worst])
+        loss_lim, grad_lim = limits[name]
+        print(f"  {name} (batch {n}): loss kernel {loss_k:.6f} plain "
+              f"{loss_p:.6f} (rel err {loss_rel:.3g}, limit {loss_lim}); "
+              f"gradient rel L2 err max {errs[worst]:.3g} ({worst}), "
+              f"median {statistics.median(errs.values()):.3g}, limit "
+              f"{grad_lim}", flush=True)
+        if not (loss_rel <= loss_lim and errs[worst] <= grad_lim):
+            raise AssertionError(f"{name}: the step through the kernels "
+                                 f"disagrees with the plain ST")
+    return results
 
 
 def main() -> int:
@@ -361,28 +688,51 @@ def main() -> int:
           f"bf16 {BF16_TOL})", flush=True)
     rows = kernel_phase(st_kernel, invert_where, bw, f32_peak)
 
-    print("[4] the slice", flush=True)
+    print(f"[3b] backward kernel against plain (f32 limits g_img, g_zw: "
+          f"{BWD_F32_TOL} of max(1, max|plain|); bf16 rtol 5e-2, atol "
+          f"2e-2 of it)", flush=True)
+    bwd_rows = bwd_phase(st_kernel, invert_where, bw, f32_peak)
+
+    print("[4] the serving slice", flush=True)
     launches = slice_phase(air, st_kernel, smi)
 
-    timed_rows = [r for r in rows if "ms" in r]
-    head = timed_rows[0]                       # gather 50x50->20x20, N=8192
-    kernel = {
-        "name": "st_gather", "route": "cuda",
-        "source": "attend_infer_repeat_torch/csrc/st_gather.cu",
-        "replaces": "attend_infer_repeat_tpu/ops/pallas_st.py:54",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "max_abs_err_bf16": max(r["max_abs_err_bf16"] for r in rows),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "shape": f"{head['case']} N={head['n']}",
-        "shapes": [{k: r[k] for k in ("case", "n", "ms", "plain_ms",
-                                      "bound_ms", "bound_by", "library_ms",
-                                      "max_abs_err")} for r in timed_rows],
-    }
+    print("[5] the train step", flush=True)
+    from attend_infer_repeat_torch.data import load_digit_bank
+    fast = air.get_config("canonical_fast")
+    bank, _ = load_digit_bank(fast.data.source, fast.data.digit_size)
+    train_launches, bwd_launches = train_phase(air, st_kernel, smi, bank)
+
+    print("[6] one step through the plain ST on the card", flush=True)
+    plain_step_phase(air, st_kernel, STEP_LIMITS)
+
+    def kernel_line(name, source, replaces, launches, rows, head_case):
+        timed = [r for r in rows if "ms" in r]
+        head = next(r for r in timed if (r["case"], r["n"]) == head_case)
+        keys = ("case", "n", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")
+        return {
+            "name": name, "route": "cuda",
+            "source": f"attend_infer_repeat_torch/csrc/{source}",
+            "replaces": f"attend_infer_repeat_tpu/ops/pallas_st.py:{replaces}",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_abs_err_bf16": max(r["max_abs_err_bf16"] for r in rows),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "shape": f"{head['case']} N={head['n']}",
+            "shapes": [{k: r[k] for k in keys} for r in timed],
+        }
+
+    kernels = [
+        kernel_line("st_gather", "st_gather.cu", 54,
+                    launches + train_launches, rows,
+                    ("gather 50x50->20x20", N_SERVE)),
+        kernel_line("st_gather_bwd", "st_gather_bwd.cu", 155, bwd_launches,
+                    bwd_rows, ("paste bwd 20x20->50x50", N_TRAIN)),
+    ]
     print(f"  total {time.perf_counter() - t0:.1f} s", flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,13 +1,17 @@
-"""Profile serving requests of the PyTorch port on the card.
+"""Profile serving requests, or train steps, of the PyTorch port on the card.
 
     python3 scripts/torch_profile_serving.py [--preset serving] [--batch 8192]
+    python3 scripts/torch_profile_serving.py --train [--preset canonical_fast]
+        [--batch 1024]
 
-Builds the preset's model (random weights from a seed, no NVIL baseline),
-synthesizes one batch of canvases, then:
+Serving builds the preset's model (random weights from a seed, no NVIL
+baseline) and synthesizes one batch of canvases; ``--train`` builds the
+preset's train state and step (synthesis inside the step, batch 1024 by
+default).  Then, for one unit of work (a request, or a train step):
 
-- times 10 requests with the host clock around ``torch.cuda.synchronize``;
-- traces 3 requests with ``torch.profiler`` and prints the device time by
-  kernel, the kernel launches per request and the device's busy share,
+- times 10 units with the host clock around ``torch.cuda.synchronize``;
+- traces 3 units with ``torch.profiler`` and prints the device time by
+  kernel, the kernel launches per unit and the device's busy share,
   both of the traced wall time and of the unprofiled median wall.
 
 Prints the card's name and power limit first.  Needs one CUDA card.
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -29,8 +34,12 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", default="serving")
-    ap.add_argument("--batch", type=int, default=8192)
+    ap.add_argument("--train", action="store_true",
+                    help="profile train steps instead of serving requests")
+    ap.add_argument("--preset", default=None,
+                    help="serving (default) or, with --train, canonical_fast")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="8192 (serving) or 1024 (--train) by default")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
@@ -46,34 +55,50 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    cfg = air.get_config(args.preset)
+    preset = args.preset or ("canonical_fast" if args.train else "serving")
+    batch = args.batch or (1024 if args.train else 8192)
+    cfg = air.get_config(preset)
     bank, _ = load_digit_bank(cfg.data.source, cfg.data.digit_size)
     gen = torch.Generator("cuda").manual_seed(0)
-    imgs, _ = make_synth_fn(cfg.data, bank)(args.batch, gen)
-    model = air.AIRModel(cfg.model, use_baseline=False, seed=0)
-    infer = air.make_infer_fn(cfg, model)
+    if args.train:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, batch_size=batch))
+        state = air.create_train_state(cfg, seed=0)
+        step = air.make_train_step(cfg, state.model, digit_bank=bank)
+        unit = "train step"
+
+        def work():
+            step(state)
+    else:
+        imgs, _ = make_synth_fn(cfg.data, bank)(batch, gen)
+        model = air.AIRModel(cfg.model, use_baseline=False, seed=0)
+        infer = air.make_infer_fn(cfg, model)
+        unit = "request"
+
+        def work():
+            infer(imgs, gen)
     for _ in range(3):
-        infer(imgs, gen)
+        work()
     torch.cuda.synchronize()
 
     walls = []
     for _ in range(10):
         t = time.perf_counter()
-        infer(imgs, gen)
+        work()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
     walls.sort()
-    print(f"{args.preset} batch {args.batch}: request wall ms min "
+    print(f"{preset} batch {batch}: {unit} wall ms min "
           f"{walls[0] * 1e3:.3f} median {walls[5] * 1e3:.3f}; img/s at the "
-          f"median {args.batch / walls[5]:.1f}")
+          f"median {batch / walls[5]:.1f}")
 
-    n_req = 3
-    st_kernel.launches = 0
+    n_units = 3
+    st_kernel.launches = st_kernel.bwd_launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for _ in range(n_req):
-            infer(imgs, gen)
+        for _ in range(n_units):
+            work()
         torch.cuda.synchronize()
         traced = time.perf_counter() - t
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -82,15 +107,17 @@ def main() -> int:
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
     busy = sum(v[0] for v in by_name.values())
-    print(f"traced {n_req} requests: wall {traced * 1e3:.3f} ms, device busy "
-          f"{busy / 1e3:.3f} ms, {len(kernels) / n_req:.0f} device ops per "
-          f"request, {st_kernel.launches // n_req} of them st_gather")
+    print(f"traced {n_units} {unit}s: wall {traced * 1e3:.3f} ms, device "
+          f"busy {busy / 1e3:.3f} ms, {len(kernels) / n_units:.0f} device ops "
+          f"per {unit}, {st_kernel.launches // n_units} of them st_gather, "
+          f"{st_kernel.bwd_launches // n_units} st_gather_bwd")
     print(f"device busy share: {100 * busy / (traced * 1e6):.1f}% of the "
-          f"traced wall; {100 * busy / n_req / (walls[5] * 1e6):.1f}% of the "
-          f"unprofiled median wall (profiled busy per request over it)")
-    print("device us per request, by kernel (top 15):")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        print(f"  {us / n_req:10.1f} us  {n // n_req:4d}x  "
+          f"traced wall; {100 * busy / n_units / (walls[5] * 1e6):.1f}% of "
+          f"the unprofiled median wall (profiled busy per {unit} over it)")
+    print(f"device us per {unit}, by kernel (top 15):")
+    for name, (us, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:15]:
+        print(f"  {us / n_units:10.1f} us  {n // n_units:4d}x  "
               f"{100 * us / busy:5.1f}%  {name[:90]}")
     return 0
 

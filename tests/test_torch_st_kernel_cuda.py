@@ -1,15 +1,19 @@
-"""PyTorch port: the hand-written gather kernel on the card, against its
-plain PyTorch version on the same inputs.
+"""PyTorch port: the hand-written gather kernel and its backward on the
+card, against their plain PyTorch versions on the same inputs.
 
 Needs a CUDA card and ``nvcc``; every test skips without a card.  The
-kernel has no CPU mode, so these run only on the card, without the JAX
+kernels have no CPU mode, so these run only on the card, without the JAX
 package's conftest (the card's machine has no JAX)::
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_st_kernel_cuda.py
 
-Limits: max abs error 1e-5 in f32 and 2e-2 in bf16 mode, the JAX
+Limits, forward: max abs error 1e-5 in f32 and 2e-2 in bf16 mode, the JAX
 package's limits for its Pallas kernel against the einsum path.
+Backward, f32: g_img to 1e-5 and g_zw to 1e-4 of max(1, max|plain|) (each
+g_zw sums thousands of products with cancellation, in another order than
+the plain matmuls); bf16: rtol 5e-2, atol 2e-2·max(1, max|plain|), the
+Pallas kernel's own bound (tests/test_pallas_st.py).
 """
 
 import dataclasses
@@ -125,8 +129,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         st_kernel.st_gather_cuda(img, zw.cpu(), (5, 5))
     with pytest.raises(ValueError, match="zw"):
         st_kernel.st_gather_cuda(img, zw[:3], (5, 5))
-    with pytest.raises(NotImplementedError, match="backward"):
-        st_kernel.st_gather_cuda(img, zw.requires_grad_(), (5, 5))
+    g = torch.ones((4, 5, 5), device=cuda)
+    with pytest.raises(ValueError, match="want g"):
+        st_kernel.st_gather_bwd_cuda(img, zw, g[:, :4].contiguous(), (5, 5))
+    with pytest.raises(TypeError):
+        st_kernel.st_gather_bwd_cuda(img, zw, g.double(), (5, 5))
+    with pytest.raises(ValueError, match="one device"):
+        st_kernel.st_gather_bwd_cuda(img, zw, g.cpu(), (5, 5))
+    with pytest.raises(ValueError, match="shared memory"):
+        st_kernel.st_gather_bwd_cuda(
+            torch.zeros((1, 300, 300), device=cuda), zw[:1],
+            torch.zeros((1, 200, 200), device=cuda), (200, 200))
+    # gradients are no longer refused: autograd reaches the backward kernel
+    before = st_kernel.bwd_launches
+    tst.st_gather(img, zw.requires_grad_(), (5, 5)).sum().backward()
+    assert zw.grad.shape == (4, 4) and st_kernel.bwd_launches == before + 1
 
 
 def test_model_on_the_card_matches_the_cpu(cuda):
@@ -153,3 +170,129 @@ def test_model_on_the_card_matches_the_cpu(cuda):
         assert max_err(out[k].cpu(), ref[k]) <= 1e-4, k
     torch.testing.assert_close(out["elbo"].cpu(), ref["elbo"], rtol=1e-5,
                                atol=1e-3)
+
+
+BWD_CASES = [  # n, input, output, paste
+    (1, (50, 50), (20, 20), False),
+    (5, (50, 50), (20, 20), False),
+    (1023, (50, 50), (20, 20), False),
+    (1024, (50, 50), (20, 20), False),
+    (17, (20, 20), (50, 50), True),
+    (1024, (20, 20), (50, 50), True),
+    (7, (25, 31), (9, 13), False),
+    (3, (1, 40), (1, 7), False),
+]
+
+
+def bwd_close(kernel, plain, mode, rel):
+    torch.cuda.synchronize()
+    scale = max(1.0, plain.abs().max().item())
+    if mode == "float32":
+        return (kernel - plain).abs().max().item() <= rel * scale
+    return torch.allclose(kernel, plain, rtol=5e-2, atol=2e-2 * scale)
+
+
+@pytest.mark.parametrize("mode", sorted(TOL))
+@pytest.mark.parametrize("n, in_shape, out_shape, paste", BWD_CASES)
+def test_backward_kernel_matches_plain(cuda, mode, n, in_shape, out_shape,
+                                       paste):
+    img, zw = inputs(n, in_shape, n, paste)
+    g = torch.randn((n,) + out_shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(n))
+    k_img, k_zw = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape, mode)
+    p_img, p_zw = st_kernel.st_gather_bwd_plain(img, zw, g, out_shape, mode)
+    assert k_img.shape == img.shape and k_zw.shape == (n, 4)
+    assert bwd_close(k_img, p_img, mode, 1e-5)
+    assert bwd_close(k_zw, p_zw, mode, 1e-4)
+    none, z_only = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape, mode,
+                                                need_img=False)
+    assert none is None and torch.equal(z_only, k_zw)
+
+
+def test_backward_out_of_range_is_exactly_zero(cuda):
+    img = torch.rand((4, 20, 20), device=cuda)
+    zw = torch.tensor([[0.5, 0.5, 5.0, 5.0], [0.5, 0.5, -5.0, -5.0],
+                       [0.5, 0.5, 5.0, 0.0], [1e30, 1e30, 0.0, 0.0]],
+                      device=cuda)
+    g_img, g_zw = st_kernel.st_gather_bwd_cuda(
+        img, zw, torch.randn((4, 8, 8), device=cuda), (8, 8))
+    assert g_img.abs().max().item() == 0 and g_zw.abs().max().item() == 0
+    # near-zero scales through invert_where: |p| ~ 1e7, a paste of nothing
+    inv = tst.invert_where(torch.tensor(
+        [[0.0, 0.0, 0.01, 0.01], [1e-9, -1e-9, 0.0, 0.0]], device=cuda))
+    g_img, g_zw = st_kernel.st_gather_bwd_cuda(
+        torch.rand((2, 20, 20), device=cuda), inv.contiguous(),
+        torch.randn((2, 50, 50), device=cuda), (50, 50))
+    assert g_img.abs().max().item() == 0 and g_zw.abs().max().item() == 0
+
+
+def test_backward_nan_where_plain_gives_nan(cuda):
+    img, zw = inputs(3, (30, 30), 4)
+    zw[1, 0] = float("nan")                     # column coordinates
+    zw[2, 3] = float("nan")                     # row coordinates
+    g = torch.randn((3, 6, 6), device=cuda)
+    k = st_kernel.st_gather_bwd_cuda(img, zw, g, (6, 6))
+    p = st_kernel.st_gather_bwd_plain(img, zw, g, (6, 6))
+    for a, b in zip(k, p):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+    assert not torch.isnan(k[0][0]).any() and torch.isnan(k[0][1:]).all()
+
+
+def test_backward_kernel_is_deterministic(cuda):
+    img, zw = inputs(512, (20, 20), 8, paste=True)
+    g = torch.randn((512, 50, 50), device=cuda)
+    a = st_kernel.st_gather_bwd_cuda(img, zw, g, (50, 50))
+    b = st_kernel.st_gather_bwd_cuda(img, zw, g, (50, 50))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """A small model's train step through both kernels on the card against
+    the same weights, batch and noise through the plain versions on the
+    CPU: 2 forward and 2 backward launches per cell step."""
+    import copy
+
+    from attend_infer_repeat_torch import configs
+    from attend_infer_repeat_torch.train import (
+        create_train_state, make_train_step)
+    from attend_infer_repeat_torch.train.step import (
+        kl_warmup, make_objective_loss_fn)
+
+    model_cfg = configs.ModelConfig(img_size=(24, 24), glimpse_size=(10, 10),
+                                    n_what=8, rnn_hidden=32)
+    cfg = dataclasses.replace(configs.get_config("canonical"),
+                              model=model_cfg)
+    cpu = create_train_state(cfg, seed=3, device="cpu")
+    card = copy.deepcopy(cpu)
+    card.model.to(cuda)
+    card.opt_state = {k: dataclasses.replace(
+        v, nu=[t.to(cuda) for t in v.nu], trace=[t.to(cuda) for t in v.trace])
+        for k, v in card.opt_state.items()}
+    x = torch.rand((16, 24, 24), generator=torch.Generator().manual_seed(0))
+    nums = torch.zeros(16, dtype=torch.int32)
+    noise = cpu.model.sample_noise(16, torch.Generator().manual_seed(1))
+    noise_card = tuple(a.to(cuda) for a in noise)
+    p = torch.tensor(0.5)
+
+    def grads(state, imgs, nz):
+        loss, _ = make_objective_loss_fn(cfg, state.model, imgs, None, p,
+                                         kl_warmup(cfg, 0), nz)()
+        names, params = zip(*state.model.named_parameters())
+        return loss, dict(zip(names, torch.autograd.grad(loss, params)))
+
+    loss_c, g_c = grads(cpu, x, noise)
+    before = (st_kernel.launches, st_kernel.bwd_launches)
+    loss_k, g_k = grads(card, x.to(cuda), noise_card)
+    t = model_cfg.max_steps
+    assert (st_kernel.launches, st_kernel.bwd_launches) == (
+        before[0] + 2 * t, before[1] + 2 * t)
+    torch.testing.assert_close(loss_k.cpu(), loss_c, rtol=1e-5, atol=0)
+    for n, g in g_c.items():
+        err = ((g_k[n].cpu() - g).norm() / g.norm().clamp(min=1e-30)).item()
+        assert err <= 1e-4, (n, err)
+    step_c = make_train_step(cfg, cpu.model)
+    step_k = make_train_step(cfg, card.model)
+    _, m_c = step_c(cpu, (x, nums), noise=noise)
+    _, m_k = step_k(card, (x.to(cuda), nums.to(cuda)), noise=noise_card)
+    for k, v in m_c.items():
+        torch.testing.assert_close(m_k[k].cpu(), v, rtol=1e-4, atol=1e-5)
