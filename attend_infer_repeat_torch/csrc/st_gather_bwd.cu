@@ -252,11 +252,9 @@ st_gather_bwd_kernel(const float* __restrict__ img,
   }
 }
 
-}  // namespace
-
 // Dynamic shared memory the kernel needs for one example.
-extern "C" long long st_gather_bwd_smem(int in_h, int in_w, int out_h,
-                                        int out_w, int with_gimg) {
+long long smem_bytes(int in_h, int in_w, int out_h, int out_w,
+                     bool with_gimg) {
   long long bytes = static_cast<long long>(sizeof(TapsDp)) * (out_h + out_w)
       + static_cast<long long>(sizeof(float))
             * (2LL * out_h * out_w + out_h + out_w);
@@ -268,22 +266,29 @@ extern "C" long long st_gather_bwd_smem(int in_h, int in_w, int out_h,
   return bytes;
 }
 
+}  // namespace
+
 // img (n, in_h, in_w), zw (n, 4), g (n, out_h, out_w) in; gimg
 // (n, in_h, in_w) or null, gzw (n, 4) out: contiguous float32 device
 // pointers, n < 2^31.  Launches on `stream`, does not synchronise, and
-// returns the first CUDA error of the attribute call or the launch.
+// returns the first CUDA error of the attribute call or the launch (a
+// shape whose block needs more shared memory than the card has fails the
+// attribute call).
 extern "C" int st_gather_bwd(const void* img, const void* zw, const void* g,
                              void* gimg, void* gzw, long long n, int in_h,
                              int in_w, int out_h, int out_w, int bf16,
                              void* stream) {
   if (n <= 0 || out_h <= 0 || out_w <= 0) return 0;
   const long long smem =
-      st_gather_bwd_smem(in_h, in_w, out_h, out_w, gimg != nullptr);
+      smem_bytes(in_h, in_w, out_h, out_w, gimg != nullptr);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         st_gather_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) {
+      cudaGetLastError();    // returned here, not left for the next launch
+      return static_cast<int>(err);
+    }
   }
   st_gather_bwd_kernel<<<static_cast<unsigned>(n), kThreads,
                          static_cast<size_t>(smem),

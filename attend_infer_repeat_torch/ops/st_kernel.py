@@ -41,8 +41,6 @@ SOURCES = (_PKG / "csrc" / "st_taps.cuh", SOURCE, BWD_SOURCE)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# dynamic shared memory one block may use on Hopper (227 KB)
-MAX_SMEM = 232_448
 
 #: Number of forward kernel launches since the count was last set to 0.
 launches = 0
@@ -98,8 +96,6 @@ def _load():
             ptr, ptr, ptr, ptr, ptr,                # img zw g gimg gzw
             ctypes.c_longlong, i32, i32, i32, i32, i32, ptr]
         lib.st_gather_bwd.restype = i32
-        lib.st_gather_bwd_smem.argtypes = [i32, i32, i32, i32, i32]
-        lib.st_gather_bwd_smem.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -200,11 +196,6 @@ def st_gather_bwd_cuda(img: torch.Tensor, zw: torch.Tensor, g: torch.Tensor,
             g_img.zero_()
         return g_img, g_zw.zero_()
     lib = _load()
-    smem = lib.st_gather_bwd_smem(in_h, in_w, out_h, out_w, int(need_img))
-    if smem > MAX_SMEM:
-        raise ValueError(f"st_gather_bwd_cuda: {in_h}x{in_w} -> "
-                         f"{out_h}x{out_w} needs {smem} bytes of shared "
-                         f"memory, over the {MAX_SMEM} a block can use")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.st_gather_bwd(

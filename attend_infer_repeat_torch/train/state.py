@@ -71,7 +71,9 @@ class TrainState:
 
 
 class Optimizer:
-    """The JAX package's ``make_optimizer`` as in-place tensor updates.
+    """The JAX package's ``make_optimizer`` as in-place tensor updates:
+    RMSProp(lr, momentum) on the model group, with the optional global
+    norm clip and cosine decay; RMSProp at a constant lr on the baseline.
 
     ``update`` runs under ``torch.no_grad()`` and writes the parameters
     and the state in place: that takes the place of JAX's donated buffers
@@ -133,12 +135,6 @@ class Optimizer:
             st.count += 1
 
 
-def make_optimizer(cfg: TrainConfig, model: torch.nn.Module) -> Optimizer:
-    """RMSProp(lr, momentum) on the model group, with the optional global
-    norm clip and cosine decay; RMSProp at a constant lr on the baseline."""
-    return Optimizer(cfg, model)
-
-
 def global_norm(tensors) -> torch.Tensor:
     """``sqrt(Σ ‖t‖²)`` over a list of tensors (optax ``global_norm``)."""
     norms = torch._foreach_norm(list(tensors))
@@ -156,7 +152,7 @@ def create_train_state(config: Config, seed: int | None = None,
     model = AIRModel(config.model, use_baseline=config.train.use_baseline,
                      device=device, seed=seed)
     return TrainState(step=0, model=model,
-                      opt_state=make_optimizer(config.train, model).init(),
+                      opt_state=Optimizer(config.train, model).init(),
                       base_seed=seed)
 
 

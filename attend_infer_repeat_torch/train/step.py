@@ -39,9 +39,9 @@ from attend_infer_repeat_torch.models.estimator import (
     vimco_surrogate_loss,
 )
 from attend_infer_repeat_torch.train.state import (
+    Optimizer,
     TrainState,
     global_norm,
-    make_optimizer,
     param_group,
     prior_success_prob,
 )
@@ -156,7 +156,7 @@ def make_train_step(config: Config, model: AIRModel, digit_bank=None,
                                             dtype=torch.float32).to(dev))
         ds_nums = _ordinary(torch.as_tensor(device_data[1],
                                             dtype=torch.int32).to(dev))
-    opt = make_optimizer(tcfg, model)
+    opt = Optimizer(tcfg, model)
     names, params = zip(*model.named_parameters())
     tops = sorted({n.split(".", 1)[0] for n in names})
 

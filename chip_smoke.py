@@ -18,7 +18,8 @@ Phases, in order (any failure raises and exits non-zero):
 3b. the backward kernel against its plain version in the same way, at
    the train step's shapes and at N = 8192, ragged N and an odd shape;
    edge cases; two runs bit-identical; the library call is
-   ``grid_sample``'s backward;
+   ``grid_sample``'s backward; the bound counts the cotangent only where
+   it has a tap (``gather_bwd_work``);
 4. the serving slice: canvas synthesis, serving requests through
    ``make_infer_fn`` for the ``serving`` preset and the ``canonical_fast``
    model, ``make_generate_fn``; launch counts read around that run; one
@@ -27,6 +28,9 @@ Phases, in order (any failure raises and exits non-zero):
    ``create_train_state`` and ``make_train_step`` (warm-up, then timed
    steps), then one ``make_eval_step``; launch counts read around that
    run (per step: 1 synthesis paste, 6 forward, 6 backward launches);
+5b. one more step with every kernel call's inputs recorded; each kernel
+   against plain and timed on the windows, images and cotangents that the
+   step really gives it (after the counts were read);
 6. one step's loss and gradients through the kernels and through the
    plain spatial transformer, for ``canonical`` and ``canonical_fast``;
 7. a ``kernels`` JSON line, then the last line
@@ -53,11 +57,12 @@ SLEEP_CYCLES = 50_000_000   # ~30 ms at the H100's ~1.7 GHz
 # for bit at these shapes), so the bf16 limit sits well under one bf16 ulp
 # of a pixel (~4e-3): a kernel that skipped a bf16 rounding would fail it.
 F32_TOL, BF16_TOL = 1e-5, 1e-3
-# Backward kernel against plain, f32: g_img and g_zw max abs err over
+# Backward kernel against plain: g_img and g_zw max abs err over
 # max(1, max|plain|).  Each g_zw sums up to 2500·4 products with
-# cancellation, in another order than the plain matmuls.  bf16: rtol 5e-2,
-# atol 2e-2·max(1, max|plain|), the Pallas kernel's own bound.
-BWD_F32_TOL = (1e-5, 1e-4)
+# cancellation, in another order than the plain matmuls.  The kernel rounds
+# where its plain version rounds, so the bf16 mode is held to the same
+# limits: one skipped bf16 rounding (~4e-3 relative per term) fails them.
+BWD_TOL = (1e-5, 1e-4)
 # One step through the kernels against the plain ST: (loss rel err,
 # largest per-tensor gradient rel L2 err).  canonical is f32 end to end;
 # in canonical_fast the forward kernel is bit-equal to plain, and an f32
@@ -128,27 +133,91 @@ def grid_sample_gather(img, zw, out_shape):
                          padding_mode="zeros", align_corners=True)[:, 0]
 
 
+def sectors(mask) -> int:
+    """32-byte sectors (8 floats) of a contiguous float32 tensor shaped as
+    ``mask`` that hold at least one pixel where ``mask`` is set."""
+    flat = mask.flatten()
+    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 8)])
+    return flat.view(-1, 8).any(1).sum().item()
+
+
+def tap_support(zw, in_shape, out_shape):
+    """The gather's nonzero taps on these ``zw``: the input pixels they
+    touch (rows that some output row's taps reach, crossed with columns
+    that some output column's taps reach), the output pixels that have a
+    tap (a row with a nonzero tap crossed with such a column), and the
+    number of nonzero tap pairs."""
+    from attend_infer_repeat_torch.ops.spatial_transformer import st_weights
+
+    w_y, w_x = st_weights(zw, out_shape, in_shape)
+    ny, nx = w_y != 0, w_x != 0                     # (N, h, H), (N, w, W)
+    touched_in = ny.any(1)[:, :, None] & nx.any(1)[:, None, :]
+    touched_out = ny.any(2)[:, :, None] & nx.any(2)[:, None, :]
+    taps = (ny.sum((1, 2)).double() * nx.sum((1, 2)).double()).sum().item()
+    return touched_in, touched_out, taps
+
+
 def gather_work(zw, in_shape, out_shape):
     """Bytes and FLOP that this gather needs on these ``zw``.
 
-    The kernel reads only the input pixels its nonzero taps touch: the
-    rows of an example that some output row's taps reach, crossed with the
-    columns that some output column's taps reach.  Bytes count the 32-byte
-    sectors that hold those pixels, plus ``zw`` read and the output
-    written once; FLOP count one multiply-add per nonzero tap pair.
+    The kernel reads only the input pixels its nonzero taps touch.  Bytes
+    count the 32-byte sectors that hold those pixels, plus ``zw`` read and
+    the output written once; FLOP count one multiply-add per nonzero tap
+    pair.  Also returns the touched share of the input.
     """
-    from attend_infer_repeat_torch.ops.spatial_transformer import st_weights
-
+    touched, _, taps = tap_support(zw, in_shape, out_shape)
     n = zw.shape[0]
-    w_y, w_x = st_weights(zw, out_shape, in_shape)
-    ny, nx = w_y != 0, w_x != 0                     # (N, h, H), (N, w, W)
-    touched = ny.any(1)[:, :, None] & nx.any(1)[:, None, :]
-    flat = touched.flatten()
-    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 8)])
-    sectors = flat.view(-1, 8).any(1).sum().item()  # 8 floats per sector
-    taps = (ny.sum((1, 2)).double() * nx.sum((1, 2)).double()).sum().item()
-    nbytes = 32 * sectors + 4 * n * (4 + out_shape[0] * out_shape[1])
+    nbytes = 32 * sectors(touched) + 4 * n * (4 + out_shape[0] * out_shape[1])
     return nbytes, 2 * taps, touched.sum().item() / touched.numel()
+
+
+def timing(kernel, plain, library, nbytes, flops, bw, f32_peak):
+    """Device ms of the kernel, its plain version and the library call,
+    and the bound: ``nbytes`` and ``flops`` at the card's peak rates."""
+    row = dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+               library_ms=cuda_ms(library), bytes_ms=nbytes / bw * 1e3,
+               ops_ms=flops / f32_peak * 1e3)
+    row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+    row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["ops_ms"]
+                       else "operations")
+    return row
+
+
+def timing_text(row, nbytes, library):
+    return (f"kernel {row['ms'] * 1e3:.2f} us, plain "
+            f"{row['plain_ms'] * 1e3:.2f} us, {library} "
+            f"{row['library_ms'] * 1e3:.2f} us, bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}; "
+            f"{nbytes / 1e6:.3f} MB)")
+
+
+def check_gather(st_kernel, row, img, zw, out_shape):
+    """The forward kernel against plain in both modes; errors into
+    ``row``, raises on a miss.  Returns the message."""
+    for mode, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL)):
+        k = st_kernel.st_gather_cuda(img, zw, out_shape, mode)
+        p = st_kernel.st_gather_plain(img, zw, out_shape, mode)
+        torch.cuda.synchronize()
+        err = (k - p).abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{row['case']} N={row['n']} {mode}: kernel "
+                                 f"vs plain max abs err {err} > {tol}")
+        row["max_abs_err" + ("" if mode == "float32" else "_bf16")] = err
+    return (f"  {row['case']} N={row['n']}: err f32 {row['max_abs_err']:.3g}"
+            f" bf16 {row['max_abs_err_bf16']:.3g}")
+
+
+def time_gather(st_kernel, row, img, zw, out_shape, bw, f32_peak):
+    """Time the forward kernel on these inputs into ``row``; its text."""
+    in_shape = tuple(img.shape[1:])
+    nbytes, flops, row["touched"] = gather_work(zw, in_shape, out_shape)
+    row.update(timing(
+        lambda: st_kernel.st_gather_cuda(img, zw, out_shape),
+        lambda: st_kernel.st_gather_plain(img, zw, out_shape),
+        lambda: grid_sample_gather(img, zw, out_shape),
+        nbytes, flops, bw, f32_peak))
+    return (timing_text(row, nbytes, "grid_sample")
+            + f", input touched {100 * row['touched']:.1f}%")
 
 
 def kernel_phase(st_kernel, invert_where, bw, f32_peak):
@@ -178,41 +247,12 @@ def kernel_phase(st_kernel, invert_where, bw, f32_peak):
         zw = random_where(n, gen)
         if paste:
             zw = invert_where(zw).contiguous()
-        errs = {}
-        for mode, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL)):
-            k = st_kernel.st_gather_cuda(img, zw, out_shape, mode)
-            p = st_kernel.st_gather_plain(img, zw, out_shape, mode)
-            torch.cuda.synchronize()
-            errs[mode] = (k - p).abs().max().item()
-            if not errs[mode] <= tol:
-                raise AssertionError(f"{name} N={n} {mode}: kernel vs plain "
-                                     f"max abs err {errs[mode]} > {tol}")
-        row = {"case": name, "n": n, "max_abs_err": errs["float32"],
-               "max_abs_err_bf16": errs["bfloat16"]}
+        row = {"case": name, "n": n}
+        msg = check_gather(st_kernel, row, img, zw, out_shape)
         if timed_case:
-            nbytes, flops, row["touched"] = gather_work(zw, in_shape,
-                                                        out_shape)
-            row.update(
-                ms=cuda_ms(lambda: st_kernel.st_gather_cuda(
-                    img, zw, out_shape)),
-                plain_ms=cuda_ms(lambda: st_kernel.st_gather_plain(
-                    img, zw, out_shape)),
-                library_ms=cuda_ms(lambda: grid_sample_gather(
-                    img, zw, out_shape)),
-                bytes_ms=nbytes / bw * 1e3, ops_ms=flops / f32_peak * 1e3)
-            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-            row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["ops_ms"]
-                               else "operations")
-            print(f"  {name} N={n}: kernel {row['ms'] * 1e3:.2f} us, "
-                  f"plain {row['plain_ms'] * 1e3:.2f} us, grid_sample "
-                  f"{row['library_ms'] * 1e3:.2f} us, bound "
-                  f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}; "
-                  f"{nbytes / 1e6:.2f} MB, input touched "
-                  f"{100 * row['touched']:.1f}%); err f32 {errs['float32']:.3g} bf16 "
-                  f"{errs['bfloat16']:.3g}", flush=True)
-        else:
-            print(f"  {name} N={n}: err f32 {errs['float32']:.3g} bf16 "
-                  f"{errs['bfloat16']:.3g}", flush=True)
+            msg += "; " + time_gather(st_kernel, row, img, zw, out_shape, bw,
+                                      f32_peak)
+        print(msg, flush=True)
         rows.append(row)
 
     # every sample out of bounds: exactly zero
@@ -373,16 +413,22 @@ def slice_phase(air, st_kernel, smi):
 def gather_bwd_work(zw, in_shape, out_shape, need_img):
     """Bytes and FLOP that this gather's backward needs on these ``zw``.
 
-    The forward's touched input pixels and ``zw`` (``gather_work``), the
-    cotangent ``g`` read once (the size of the forward's output), ``g_zw``
-    written, and ``g_img`` written once when asked for.  FLOP: per nonzero
-    tap pair, the two zw sums take two multiply-adds each and ``g_img``
-    two more.
+    Reads, by 32-byte sector: the input pixels the forward's taps touch,
+    and the cotangent ``g`` at the output pixels that have a tap (at any
+    other pixel the hat weights and their dW/dp, which share a support,
+    are 0, so neither gradient depends on ``g`` there); ``zw`` read and
+    ``g_zw`` written; ``g_img`` written whole when asked for.  FLOP: per
+    nonzero tap pair, the two zw sums take two multiply-adds each and
+    ``g_img`` two more.  Also returns the touched shares of the input and
+    of ``g``.
     """
-    nbytes, flops, touched = gather_work(zw, in_shape, out_shape)
+    touched_in, touched_out, taps = tap_support(zw, in_shape, out_shape)
     n = zw.shape[0]
-    nbytes += 16 * n + (4 * n * in_shape[0] * in_shape[1] if need_img else 0)
-    return nbytes, flops * (6 if need_img else 4), touched
+    nbytes = (32 * (sectors(touched_in) + sectors(touched_out)) + 32 * n
+              + (4 * n * in_shape[0] * in_shape[1] if need_img else 0))
+    return (nbytes, 2 * taps * (6 if need_img else 4),
+            touched_in.sum().item() / touched_in.numel(),
+            touched_out.sum().item() / touched_out.numel())
 
 
 def grid_sample_backward(img, zw, out_shape, g, need_img):
@@ -404,21 +450,63 @@ def grid_sample_backward(img, zw, out_shape, g, need_img):
     return lambda: torch.autograd.grad(out, wrt, g, retain_graph=True)
 
 
-def bwd_errors(k, p, bf16):
+def bwd_errors(k, p):
     """``(g_img err, g_zw err, within limits?)``: abs errors, and the
     limit check of each output against the scale of its plain version."""
     errs, ok = [], True
-    for a, b, rel in zip(k, p, BWD_F32_TOL):
+    for a, b, rel in zip(k, p, BWD_TOL):
         if b is None:
             errs.append(0.0)
             continue
-        scale = max(1.0, b.abs().max().item())
         errs.append((a - b).abs().max().item())
-        if bf16:
-            ok &= torch.allclose(a, b, rtol=5e-2, atol=2e-2 * scale)
-        else:
-            ok &= errs[-1] <= rel * scale
+        ok &= errs[-1] <= rel * max(1.0, b.abs().max().item())
     return errs[0], errs[1], ok
+
+
+def check_bwd(st_kernel, row, img, zw, g, out_shape, need_img):
+    """The backward kernel against plain in both modes, and run twice;
+    errors into ``row``, raises on a miss.  Returns the message."""
+    name = f"{row['case']} N={row['n']}"
+    for mode in ("float32", "bfloat16"):
+        k = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape, mode,
+                                         need_img)
+        p = st_kernel.st_gather_bwd_plain(img, zw, g, out_shape, mode,
+                                          need_img)
+        again = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape, mode,
+                                             need_img)
+        torch.cuda.synchronize()
+        e_img, e_zw, ok = bwd_errors(k, p)
+        if not ok:
+            raise AssertionError(f"{name} {mode}: backward kernel vs plain "
+                                 f"err g_img {e_img} g_zw {e_zw} over the "
+                                 f"limit")
+        if not all(a is b or torch.equal(a, b) for a, b in zip(k, again)):
+            raise AssertionError(f"{name} {mode}: two runs of the backward "
+                                 f"kernel differ")
+        tag = "" if mode == "float32" else "_bf16"
+        row["max_abs_err" + tag] = max(e_img, e_zw)
+        row["err_g_img" + tag], row["err_g_zw" + tag] = e_img, e_zw
+    return (f"  {name}: err f32 g_img {row['err_g_img']:.3g} g_zw "
+            f"{row['err_g_zw']:.3g}, bf16 g_img {row['err_g_img_bf16']:.3g} "
+            f"g_zw {row['err_g_zw_bf16']:.3g}; deterministic")
+
+
+def time_gather_bwd(st_kernel, row, img, zw, g, out_shape, need_img, bw,
+                    f32_peak):
+    """Time the backward kernel on these inputs into ``row``; its text."""
+    in_shape = tuple(img.shape[1:])
+    nbytes, flops, row["touched"], row["g_touched"] = gather_bwd_work(
+        zw, in_shape, out_shape, need_img)
+    row.update(timing(
+        lambda: st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape,
+                                             need_img=need_img),
+        lambda: st_kernel.st_gather_bwd_plain(img, zw, g, out_shape,
+                                              need_img=need_img),
+        grid_sample_backward(img, zw, out_shape, g, need_img),
+        nbytes, flops, bw, f32_peak))
+    return (timing_text(row, nbytes, "grid_sample backward")
+            + f", input touched {100 * row['touched']:.1f}%, g touched "
+            f"{100 * row['g_touched']:.1f}%")
 
 
 def bwd_phase(st_kernel, invert_where, bw, f32_peak):
@@ -455,48 +543,10 @@ def bwd_phase(st_kernel, invert_where, bw, f32_peak):
             zw = invert_where(zw).contiguous()
         g = torch.randn((n,) + out_shape, generator=gen, device="cuda")
         row = {"case": name, "n": n}
-        for mode in ("float32", "bfloat16"):
-            k = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape, mode,
-                                             need_img)
-            p = st_kernel.st_gather_bwd_plain(img, zw, g, out_shape, mode,
-                                              need_img)
-            again = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape, mode,
-                                                 need_img)
-            torch.cuda.synchronize()
-            e_img, e_zw, ok = bwd_errors(k, p, mode == "bfloat16")
-            if not ok:
-                raise AssertionError(f"{name} N={n} {mode}: backward kernel "
-                                     f"vs plain err g_img {e_img} g_zw "
-                                     f"{e_zw} over the limit")
-            if not all(a is b or torch.equal(a, b) for a, b in zip(k, again)):
-                raise AssertionError(f"{name} N={n} {mode}: two runs of the "
-                                     f"backward kernel differ")
-            tag = "" if mode == "float32" else "_bf16"
-            row["max_abs_err" + tag] = max(e_img, e_zw)
-            row["err_g_img" + tag], row["err_g_zw" + tag] = e_img, e_zw
-        msg = (f"  {name} N={n}: err f32 g_img {row['err_g_img']:.3g} g_zw "
-               f"{row['err_g_zw']:.3g}, bf16 g_img {row['err_g_img_bf16']:.3g}"
-               f" g_zw {row['err_g_zw_bf16']:.3g}; deterministic")
+        msg = check_bwd(st_kernel, row, img, zw, g, out_shape, need_img)
         if timed_case:
-            nbytes, flops, row["touched"] = gather_bwd_work(
-                zw, in_shape, out_shape, need_img)
-            library = grid_sample_backward(img, zw, out_shape, g, need_img)
-            row.update(
-                ms=cuda_ms(lambda: st_kernel.st_gather_bwd_cuda(
-                    img, zw, g, out_shape, need_img=need_img)),
-                plain_ms=cuda_ms(lambda: st_kernel.st_gather_bwd_plain(
-                    img, zw, g, out_shape, need_img=need_img)),
-                library_ms=cuda_ms(library),
-                bytes_ms=nbytes / bw * 1e3, ops_ms=flops / f32_peak * 1e3)
-            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-            row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["ops_ms"]
-                               else "operations")
-            msg += (f"; kernel {row['ms'] * 1e3:.2f} us, plain "
-                    f"{row['plain_ms'] * 1e3:.2f} us, grid_sample backward "
-                    f"{row['library_ms'] * 1e3:.2f} us, bound "
-                    f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}; "
-                    f"{nbytes / 1e6:.2f} MB, input touched "
-                    f"{100 * row['touched']:.1f}%)")
+            msg += "; " + time_gather_bwd(st_kernel, row, img, zw, g,
+                                          out_shape, need_img, bw, f32_peak)
         print(msg, flush=True)
         rows.append(row)
 
@@ -600,7 +650,63 @@ def train_phase(air, st_kernel, smi, bank):
     print(f"  eval step: count accuracy "
           f"{metrics['count_accuracy_mode'].item():.4f} (mode, random "
           f"weights), parameters unchanged", flush=True)
-    return counts
+    return counts, state, step
+
+
+def step_kernel_phase(st_kernel, state, step, bw, f32_peak):
+    """One more train step with every kernel call's inputs recorded, then
+    each kernel against plain and timed on exactly those inputs: the
+    windows, images and cotangents that the step really gives them.
+    Returns the forward and backward rows, in the order of the calls."""
+    calls = []
+    kernels = st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda
+
+    def record_fwd(img, zw, out_shape, *args):
+        calls.append(("fwd", img.clone(), zw.clone(), None, tuple(out_shape),
+                      None))
+        return kernels[0](img, zw, out_shape, *args)
+
+    def record_bwd(img, zw, g, out_shape, compute_dtype="float32",
+                   need_img=True):
+        calls.append(("bwd", img.clone(), zw.clone(), g.clone(),
+                      tuple(out_shape), need_img))
+        return kernels[1](img, zw, g, out_shape, compute_dtype, need_img)
+
+    st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda = (record_fwd,
+                                                              record_bwd)
+    try:
+        step(state)
+    finally:
+        st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda = kernels
+    torch.cuda.synchronize()
+    rows = {"fwd": [], "bwd": []}
+    for kind, img, zw, g, out_shape, need_img in calls:
+        n, h, w = img.shape
+        what = {(16, 16): "synth paste", (20, 20): "paste"}.get((h, w),
+                                                                "gather")
+        name = (f"step {what}{' bwd' if kind == 'bwd' else ''} "
+                f"{h}x{w}->{out_shape[0]}x{out_shape[1]}"
+                f"{'' if need_img is not False else ', g_zw only'} "
+                f"#{len(rows[kind]) + 1}")
+        row = {"case": name, "n": n}
+        if kind == "fwd":
+            msg = check_gather(st_kernel, row, img, zw, out_shape)
+            msg += "; " + time_gather(st_kernel, row, img, zw, out_shape, bw,
+                                      f32_peak)
+        else:
+            msg = check_bwd(st_kernel, row, img, zw, g, out_shape, need_img)
+            msg += "; " + time_gather_bwd(st_kernel, row, img, zw, g,
+                                          out_shape, need_img, bw, f32_peak)
+        print(msg, flush=True)
+        rows[kind].append(row)
+    for kind, label in (("fwd", "forward"), ("bwd", "backward")):
+        rs = rows[kind]
+        print(f"  the step's {len(rs)} {label} launches: kernel "
+              f"{sum(r['ms'] for r in rs) * 1e3:.2f} us, bound "
+              f"{sum(r['bound_ms'] for r in rs) * 1e3:.2f} us, plain "
+              f"{sum(r['plain_ms'] for r in rs) * 1e3:.2f} us, library "
+              f"{sum(r['library_ms'] for r in rs) * 1e3:.2f} us", flush=True)
+    return rows["fwd"], rows["bwd"]
 
 
 def plain_step_phase(air, st_kernel, limits):
@@ -688,9 +794,8 @@ def main() -> int:
           f"bf16 {BF16_TOL})", flush=True)
     rows = kernel_phase(st_kernel, invert_where, bw, f32_peak)
 
-    print(f"[3b] backward kernel against plain (f32 limits g_img, g_zw: "
-          f"{BWD_F32_TOL} of max(1, max|plain|); bf16 rtol 5e-2, atol "
-          f"2e-2 of it)", flush=True)
+    print(f"[3b] backward kernel against plain (limits g_img, g_zw: "
+          f"{BWD_TOL} of max(1, max|plain|), f32 and bf16)", flush=True)
     bwd_rows = bwd_phase(st_kernel, invert_where, bw, f32_peak)
 
     print("[4] the serving slice", flush=True)
@@ -700,14 +805,20 @@ def main() -> int:
     from attend_infer_repeat_torch.data import load_digit_bank
     fast = air.get_config("canonical_fast")
     bank, _ = load_digit_bank(fast.data.source, fast.data.digit_size)
-    train_launches, bwd_launches = train_phase(air, st_kernel, smi, bank)
+    (train_launches, bwd_launches), state, step = train_phase(
+        air, st_kernel, smi, bank)
+
+    print("[5b] both kernels on one train step's own inputs", flush=True)
+    step_rows, step_bwd_rows = step_kernel_phase(st_kernel, state, step, bw,
+                                                 f32_peak)
+    del state, step
 
     print("[6] one step through the plain ST on the card", flush=True)
     plain_step_phase(air, st_kernel, STEP_LIMITS)
 
     def kernel_line(name, source, replaces, launches, rows, head_case):
         timed = [r for r in rows if "ms" in r]
-        head = next(r for r in timed if (r["case"], r["n"]) == head_case)
+        head = next(r for r in timed if head_case(r["case"], r["n"]))
         keys = ("case", "n", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")
         return {
@@ -726,10 +837,11 @@ def main() -> int:
 
     kernels = [
         kernel_line("st_gather", "st_gather.cu", 54,
-                    launches + train_launches, rows,
-                    ("gather 50x50->20x20", N_SERVE)),
+                    launches + train_launches, rows + step_rows,
+                    lambda c, n: (c, n) == ("gather 50x50->20x20", N_SERVE)),
         kernel_line("st_gather_bwd", "st_gather_bwd.cu", 155, bwd_launches,
-                    bwd_rows, ("paste bwd 20x20->50x50", N_TRAIN)),
+                    bwd_rows + step_bwd_rows,
+                    lambda c, n: c.startswith("step paste bwd")),
     ]
     print(f"  total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -34,6 +34,17 @@ def t(x):
     return torch.from_numpy(np.array(x, np.float32))
 
 
+def load_chip_smoke():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 @pytest.mark.parametrize("batch", [1, 5, 8, 17])
 def test_gather_matches_jax_and_pallas(batch):
     img, zw = inputs((batch,), (50, 50), batch)
@@ -159,14 +170,7 @@ def test_chip_smoke_gather_work_counts_touched_pixels(in_shape, out_shape,
                                                       paste):
     """The card check's bound counts the input pixels the gather depends
     on (where the plain gather's gradient is nonzero), by 32-byte sector."""
-    import importlib.util
-    import pathlib
-
-    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-
+    chip_smoke = load_chip_smoke()
     img, zw = inputs((7,), in_shape, 3)
     zw = tst.invert_where(t(zw)) if paste else t(zw)
     ti = t(img).requires_grad_()
@@ -181,3 +185,35 @@ def test_chip_smoke_gather_work_counts_touched_pixels(in_shape, out_shape,
     w_y, w_x = tst.st_weights(zw, out_shape, in_shape)
     taps = torch.einsum("niq,njr->", (w_y != 0).float(), (w_x != 0).float())
     assert flops == 2 * taps.item()
+
+
+@pytest.mark.parametrize("in_shape,out_shape,paste",
+                         [((50, 50), (20, 20), False),
+                          ((20, 20), (50, 50), True)])
+def test_chip_smoke_gather_bwd_work_counts_needed_cotangent(in_shape,
+                                                            out_shape, paste):
+    """The card check's backward bound reads the cotangent only where the
+    plain backward depends on it (where its derivative w.r.t. ``g`` is
+    nonzero), by 32-byte sector, beside the forward's touched input."""
+    chip_smoke = load_chip_smoke()
+    img, zw = inputs((7,), in_shape, 4)
+    zw = tst.invert_where(t(zw)) if paste else t(zw)
+    n = zw.shape[0]
+    g = torch.zeros((n,) + out_shape, requires_grad=True)
+    coef = torch.rand((n,) + in_shape, generator=torch.Generator()
+                      .manual_seed(0)) + 0.5
+    g_img, g_zw = st_kernel.st_gather_bwd_plain(t(img), zw, g, out_shape)
+    (g_img * coef).sum().backward()
+    needed_g = (g.grad != 0).flatten()
+    fwd_bytes, fwd_flops, _ = chip_smoke.gather_work(zw, in_shape, out_shape)
+    fwd_out_bytes = 4 * n * (4 + out_shape[0] * out_shape[1])
+    g_sectors = torch.unique(needed_g.nonzero()[:, 0] // 8).numel()
+    for need_img in (True, False):
+        nbytes, flops, touched, g_touched = chip_smoke.gather_bwd_work(
+            zw, in_shape, out_shape, need_img)
+        assert 0 < g_touched < 1
+        assert g_touched == needed_g.sum().item() / needed_g.numel()
+        img_bytes = 4 * g_img.numel() if need_img else 0
+        assert nbytes == (fwd_bytes - fwd_out_bytes + 32 * g_sectors
+                          + 32 * n + img_bytes)
+        assert flops == fwd_flops * (6 if need_img else 4)

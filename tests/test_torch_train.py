@@ -23,9 +23,9 @@ from attend_infer_repeat_torch.convert import params_from_flax
 from attend_infer_repeat_torch.data import load_digit_bank, make_synth_fn
 from attend_infer_repeat_torch.models.estimator import surrogate_loss
 from attend_infer_repeat_torch.train import (
+    Optimizer,
     create_train_state,
     make_eval_step,
-    make_optimizer,
     make_scan_train_step,
     make_train_step,
     param_count,
@@ -86,7 +86,7 @@ def test_optimizer_matches_optax_over_5_updates():
     params = tree([p.detach().numpy() for p in model.parameters()])
     tx = jstate_mod.make_optimizer(jc, params)
     opt_state = tx.init(params)
-    opt = make_optimizer(cfg, model)
+    opt = Optimizer(cfg, model)
     state = opt.init()
     for _ in range(5):
         grads = [(rng.normal(size=p.shape) * 10).astype(np.float32)
