@@ -14,22 +14,38 @@
 // window moves less.  It needs ~0.1 GFLOP in tap form; the dense form
 // would need ~140 kFLOP per example (~1.1 GFLOP), which on CUDA cores is
 // close to the memory time.  The tap form keeps the arithmetic far below that.
+// At N = 1024 the grid is one wave of blocks, so there a launch takes a
+// fixed cost plus its slowest block's latency: a chain of dependent loads,
+// not bytes, sets it.  At N = 8192 the same chain repeats over several
+// waves, so the number of examples in flight on an SM matters too.
 //
-// Design: one block per example.  The block first computes the two taps
-// of every output row and every output column (h + w coordinates, not
-// h * w) into shared memory; then its threads sweep the output pixels in
-// order, each reading its row and column taps, four pixels through the
-// read-only cache, and writing one float.  Neighbouring threads own
-// neighbouring output pixels, so stores coalesce.  Index arithmetic is
-// 32-bit within an example.
+// Design: one block per example.
+//   1. The block loads its zw, then computes the two taps of every output
+//      row and every output column (h + w coordinates, not h * w) into
+//      shared memory.
+//   2. Each thread owns runs of V consecutive pixels of one output row
+//      (V = 4, 2 or 1, the largest that divides the row), stored with one
+//      V-wide vector store.  A thread finds its first run with one
+//      division and steps to the next without one.  Per run it reads the
+//      row's taps once, issues all of the run's loads before using any,
+//      then forms the V outputs.  An output row with no nonzero tap (most
+//      of a paste's canvas) stores zeros with no taps of its columns read
+//      and no loads; a column with no nonzero tap loads nothing.
+//   3. The mode (f32 or bf16) is a template parameter: no runtime branch
+//      on it.
+//   4. A small output (the 20x20 glimpse) gets a 64-thread block, so that
+//      an SM holds twice as many examples; a paste's 2,500 outputs run
+//      faster with 128 threads.
+// Index arithmetic is 32-bit within an example.
 //
 // Numerics follow the Pallas kernel: coordinates and hat weights in f32
 // with the same operation order (no FMA contraction), accumulation in f32
 // rows first, then columns, each output's two products summed in tap
 // order.  A dense f32 product that sums in index order (its other
-// weights add exact zeros) then gives the same bits.  In bf16 mode the pixels and weights are rounded to bf16
-// before the products, and so is the row-pass intermediate, as the
-// Pallas kernel rounds its first dot's result before the second.
+// weights add exact zeros) then gives the same bits.  In bf16 mode the
+// pixels and weights are rounded to bf16 before the products, and so is
+// the row-pass intermediate, as the Pallas kernel rounds its first dot's
+// result before the second.
 //
 // Coordinates are range-checked in float before floor(p) becomes an int
 // (st_taps.cuh).  A row or column whose p lies outside (-1, in) has no
@@ -42,71 +58,159 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+// Outputs (pixels per example) up to which a block has 64 threads.
+constexpr int kSmallOutput = 512;
 
-__device__ __forceinline__ float pixel(const float* __restrict__ img, int y,
-                                       int x, int in_w, float w, bool bf16) {
-  if (w == 0.0f) return 0.0f;                // also skips taps out of range
-  const float v = __ldg(img + y * in_w + x);
-  return bf16 ? round_bf16(v) : v;
-}
+template <int V>
+struct Vec;
+template <>
+struct Vec<4> {
+  __device__ static void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <>
+struct Vec<2> {
+  __device__ static void store(float* p, const float* v) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
+};
+template <>
+struct Vec<1> {
+  __device__ static void store(float* p, const float* v) { *p = v[0]; }
+};
 
+template <bool kBf16, int V, int kThreads>
 __global__ void __launch_bounds__(kThreads)
 st_gather_kernel(const float* __restrict__ img, const float* __restrict__ zw,
                  float* __restrict__ out, int in_h, int in_w, int out_h,
-                 int out_w, bool bf16) {
+                 int out_w) {
   extern __shared__ Taps taps[];             // out_h rows, then out_w columns
+  const int tid = threadIdx.x;
   const int64_t b = blockIdx.x;
   const float* __restrict__ z = zw + 4 * b;  // sx, sy, tx, ty
-  for (int r = threadIdx.x; r < out_h + out_w; r += kThreads) {
+  const float scale_x = __ldg(z + 0), scale_y = __ldg(z + 1);
+  const float shift_x = __ldg(z + 2), shift_y = __ldg(z + 3);
+
+  bool nan_col = false;
+  for (int r = tid; r < out_h + out_w; r += kThreads) {
     const bool row = r < out_h;
-    const float p = row ? source_coord(__ldg(z + 1), __ldg(z + 3),
-                                       axis_u(r, out_h), in_h)
-                        : source_coord(__ldg(z + 0), __ldg(z + 2),
-                                       axis_u(r - out_h, out_w), in_w);
-    taps[r] = axis_taps(p, row ? in_h : in_w, bf16);
+    const int k = row ? r : r - out_h;
+    const float u = axis_u(k, row ? out_h : out_w);
+    const float p = row ? source_coord(scale_y, shift_y, u, in_h)
+                        : source_coord(scale_x, shift_x, u, in_w);
+    taps[r] = axis_taps(p, row ? in_h : in_w, kBf16);
+    nan_col |= !row && p != p;
   }
-  __syncthreads();
+  const bool any_nan_col = __syncthreads_or(nan_col);
 
   const float* __restrict__ src = img + b * in_h * in_w;
   float* __restrict__ dst = out + b * out_h * out_w;
-  for (int pix = threadIdx.x; pix < out_h * out_w; pix += kThreads) {
-    const int i = pix / out_w;
+  const float nan = __int_as_float(0x7fc00000);
+  const int nvec = out_w / V;                // runs per output row
+  const int step_i = kThreads / nvec, step_k = kThreads - step_i * nvec;
+  int i = tid / nvec, kv = tid - i * nvec;
+  while (i < out_h) {
     const Taps ty = taps[i];
-    const Taps tx = taps[out_h + pix - i * out_w];
-    if (ty.q0 == kNaN || tx.q0 == kNaN) {
-      dst[pix] = __int_as_float(0x7fc00000);
-      continue;
-    }
-    // Row pass for the two columns the pixel needs, then the column pass.
-    float col[2];
-    for (int c = 0; c < 2; ++c) {
-      const int x = tx.q0 + c;
-      float acc = 0.0f;
-      if ((c ? tx.w1 : tx.w0) != 0.0f) {
-        acc = __fmaf_rn(ty.w0, pixel(src, ty.q0, x, in_w, ty.w0, bf16), acc);
-        acc = __fmaf_rn(ty.w1, pixel(src, ty.q0 + 1, x, in_w, ty.w1, bf16),
-                        acc);
+    const Taps* __restrict__ txs = taps + out_h + kv * V;
+    float res[V];
+    if (ty.q0 == kNaN) {
+#pragma unroll
+      for (int p = 0; p < V; ++p) res[p] = nan;
+    } else if (ty.w0 == 0.0f && ty.w1 == 0.0f) {
+      // no nonzero tap in this output row: zeros (NaN in a NaN column)
+#pragma unroll
+      for (int p = 0; p < V; ++p) {
+        res[p] = (any_nan_col && txs[p].q0 == kNaN) ? nan : 0.0f;
       }
-      col[c] = bf16 ? round_bf16(acc) : acc;
+    } else {
+      Taps tx[V];
+      float v[V][2][2];                      // [pixel][column tap][row tap]
+#pragma unroll
+      for (int p = 0; p < V; ++p) tx[p] = txs[p];
+#pragma unroll
+      for (int p = 0; p < V; ++p) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const bool wc = (c ? tx[p].w1 : tx[p].w0) != 0.0f;
+          const int x = tx[p].q0 + c;
+          v[p][c][0] = (wc && ty.w0 != 0.0f)
+                           ? __ldg(src + ty.q0 * in_w + x) : 0.0f;
+          v[p][c][1] = (wc && ty.w1 != 0.0f)
+                           ? __ldg(src + (ty.q0 + 1) * in_w + x) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < V; ++p) {
+        // row pass for the two columns the pixel needs, then column pass
+        float col[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float acc = 0.0f;
+          if ((c ? tx[p].w1 : tx[p].w0) != 0.0f) {
+            acc = __fmaf_rn(ty.w0, rnd<kBf16>(v[p][c][0]), acc);
+            acc = __fmaf_rn(ty.w1, rnd<kBf16>(v[p][c][1]), acc);
+          }
+          col[c] = rnd<kBf16>(acc);
+        }
+        res[p] = tx[p].q0 == kNaN
+                     ? nan
+                     : __fmaf_rn(tx[p].w1, col[1],
+                                 __fmul_rn(tx[p].w0, col[0]));
+      }
     }
-    dst[pix] = __fmaf_rn(tx.w1, col[1], __fmul_rn(tx.w0, col[0]));
+    Vec<V>::store(dst + i * out_w + kv * V, res);
+    kv += step_k;
+    i += step_i;
+    if (kv >= nvec) {
+      kv -= nvec;
+      ++i;
+    }
   }
+}
+
+template <bool kBf16, int V>
+int launch(const float* img, const float* zw, float* out, long long n,
+           int in_h, int in_w, int out_h, int out_w, cudaStream_t stream) {
+  const size_t smem = sizeof(Taps) * static_cast<size_t>(out_h + out_w);
+  const unsigned blocks = static_cast<unsigned>(n);
+  if (out_h * out_w <= kSmallOutput) {
+    st_gather_kernel<kBf16, V, 64><<<blocks, 64, smem, stream>>>(
+        img, zw, out, in_h, in_w, out_h, out_w);
+  } else {
+    st_gather_kernel<kBf16, V, 128><<<blocks, 128, smem, stream>>>(
+        img, zw, out, in_h, in_w, out_h, out_w);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBf16>
+int launch_mode(const float* img, const float* zw, float* out, long long n,
+                int in_h, int in_w, int out_h, int out_w,
+                cudaStream_t stream) {
+  if (out_w % 4 == 0) {
+    return launch<kBf16, 4>(img, zw, out, n, in_h, in_w, out_h, out_w, stream);
+  }
+  if (out_w % 2 == 0) {
+    return launch<kBf16, 2>(img, zw, out, n, in_h, in_w, out_h, out_w, stream);
+  }
+  return launch<kBf16, 1>(img, zw, out, n, in_h, in_w, out_h, out_w, stream);
 }
 
 }  // namespace
 
 // img (n, in_h, in_w), zw (n, 4) and out (n, out_h, out_w): contiguous
-// float32 device pointers, n < 2^31.  Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() after the launch.
+// float32 device pointers, n < 2^31, out 16-byte aligned (a fresh
+// allocation).  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() after the launch.
 extern "C" int st_gather(const void* img, const void* zw, void* out,
                          long long n, int in_h, int in_w, int out_h,
                          int out_w, int bf16, void* stream) {
   if (n <= 0 || out_h <= 0 || out_w <= 0) return 0;
-  const size_t smem = sizeof(Taps) * static_cast<size_t>(out_h + out_w);
-  st_gather_kernel<<<static_cast<unsigned>(n), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), static_cast<const float*>(zw),
-      static_cast<float*>(out), in_h, in_w, out_h, out_w, bf16 != 0);
-  return static_cast<int>(cudaGetLastError());
+  const auto* i = static_cast<const float*>(img);
+  const auto* z = static_cast<const float*>(zw);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_mode<true>(i, z, o, n, in_h, in_w, out_h, out_w, s)
+              : launch_mode<false>(i, z, o, n, in_h, in_w, out_h, out_w, s);
 }

@@ -24,6 +24,12 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// x rounded to bf16 in bf16 mode, x itself in f32 mode.
+template <bool kBf16>
+__device__ __forceinline__ float rnd(float x) {
+  return kBf16 ? round_bf16(x) : x;
+}
+
 // Normalized coordinate u = 2k / (out - 1) - 1 of output index k.
 __device__ __forceinline__ float axis_u(int k, int out_size) {
   const float denom = static_cast<float>(out_size > 1 ? out_size - 1 : 1);
@@ -31,12 +37,13 @@ __device__ __forceinline__ float axis_u(int k, int out_size) {
                    1.0f);
 }
 
-// Source coordinate, in input pixels, of normalized coordinate u.
+// Source coordinate, in input pixels, of normalized coordinate u.  The
+// dense form divides by 2; x * 0.5 is the same correctly rounded value.
 __device__ __forceinline__ float source_coord(float scale, float shift,
                                               float u, int in_size) {
   const float src = __fadd_rn(__fmul_rn(scale, u), shift);
-  return __fdiv_rn(__fmul_rn(__fadd_rn(src, 1.0f),
-                             static_cast<float>(in_size - 1)), 2.0f);
+  return __fmul_rn(__fmul_rn(__fadd_rn(src, 1.0f),
+                             static_cast<float>(in_size - 1)), 0.5f);
 }
 
 // The two taps of one output row or column: index q0 of the first, and

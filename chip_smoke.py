@@ -11,15 +11,16 @@ Phases, in order (any failure raises and exits non-zero):
 3. kernel against plain: the gather kernel and its plain PyTorch version
    on the same inputs at the serving and train paths' shapes (gather
    50×50→20×20, paste 20×20→50×50, synthesis paste 16×16→50×50), f32 and
-   bf16 modes, edge cases; times of the kernel, the plain version and one
-   PyTorch library call of the same function (``grid_sample``), beside the
-   bound of the bytes and FLOP that this run's inputs need
-   (``gather_work``);
+   bf16 modes, edge cases, and the windows of ``WINDOW_CASES`` (each
+   names the kernel branch it reaches); times of the kernel, the plain
+   version and one PyTorch library call of the same function
+   (``grid_sample``), beside the bound of the bytes and FLOP that this
+   run's inputs need (``gather_work``);
 3b. the backward kernel against its plain version in the same way, at
    the train step's shapes and at N = 8192, ragged N and an odd shape;
-   edge cases; two runs bit-identical; the library call is
-   ``grid_sample``'s backward; the bound counts the cotangent only where
-   it has a tap (``gather_bwd_work``);
+   edge cases and ``WINDOW_CASES``; two runs bit-identical; the library
+   call is ``grid_sample``'s backward; the bound counts the cotangent only
+   where it has a tap (``gather_bwd_work``);
 4. the serving slice: canvas synthesis, serving requests through
    ``make_infer_fn`` for the ``serving`` preset and the ``canonical_fast``
    model, ``make_generate_fn``; launch counts read around that run; one
@@ -117,6 +118,64 @@ def random_where(n, gen, scale=(0.2, 1.2), shift=0.8):
         (n, 2), generator=gen, device="cuda")
     t = shift * (2 * torch.rand((n, 2), generator=gen, device="cuda") - 1)
     return torch.cat([s, t], dim=1).contiguous()
+
+
+# Windows that reach each branch of the two kernels: kind -> the branch.
+WINDOW_CASES = {
+    "step-like windows": "scale 0.1-0.45 as the train step's: short live "
+                         "intervals, the forward's zero rows",
+    "one live row and column": "the live interval is one row and one "
+                               "column (the next one's p is below -1)",
+    "windows on each edge": "live intervals that end at a canvas edge, "
+                            "taps at q0 = -1 and q0 + 1 = in",
+    "negative scales": "p decreasing in the output index",
+    "dead beside live": "examples with no live tap beside live ones in "
+                        "one launch",
+    "tiny scales at an edge": "p within a few ulps of -1 across the rows: "
+                              "rounding decides the live interval",
+}
+
+
+def branch_where(kind, n, in_shape, out_shape, paste, gen, invert_where):
+    """``zw (n, 4)`` for one of ``WINDOW_CASES``, on ``gen``'s device.
+
+    Windows are drawn as the model draws them and inverted for a paste,
+    except two kinds that place the kernel's own coordinates: "one live
+    row and column" (the last output row and column sample p in
+    (-0.9, 0.99), their neighbours p - 2) and "tiny scales at an edge"
+    (every row samples p within ~1e-5 of -1: row scale ±1e-7 to 3e-7)."""
+    dev = gen.device
+
+    def rand(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    if kind == "one live row and column":
+        zw = torch.empty((n, 4), device=dev)
+        for axis, (n_in, n_out) in enumerate(zip(in_shape[::-1],
+                                                 out_shape[::-1])):
+            s = 2.0 * (n_out - 1) / max(n_in - 1, 1)   # 2 pixels apart
+            zw[:, axis] = s
+            zw[:, 2 + axis] = 2 * rand(-0.9, 0.99, n) / (n_in - 1) - 1 - s
+        return zw
+    if kind == "tiny scales at an edge":
+        sign = torch.where(rand(0, 1, n) < 0.5, -1.0, 1.0)
+        return torch.stack([rand(0.2, 1.2, n), sign * rand(1e-7, 3e-7, n),
+                            rand(-0.5, 0.5, n),
+                            -2.0 / (in_shape[0] - 1) - 1
+                            + 1e-7 * torch.randn(n, generator=gen,
+                                                 device=dev)], 1)
+    s, t = rand(0.1, 0.45, n, 2), rand(-0.8, 0.8, n, 2)
+    if kind == "windows on each edge":
+        side = torch.arange(n, device=dev) % 4      # right, left, bottom, top
+        axis, sign = side // 2, 1.0 - 2.0 * (side % 2)
+        t[torch.arange(n, device=dev), axis] = sign
+    elif kind == "negative scales":
+        s = rand(-1.2, -0.1, n, 2)
+    elif kind == "dead beside live":
+        s = rand(0.2, 1.2, n, 2)
+        t[::2] = 5.0
+    zw = torch.cat([s, t], dim=1).contiguous()
+    return invert_where(zw).contiguous() if paste else zw
 
 
 def grid_sample_gather(img, zw, out_shape):
@@ -254,6 +313,12 @@ def kernel_phase(st_kernel, invert_where, bw, f32_peak):
                                       f32_peak)
         print(msg, flush=True)
         rows.append(row)
+    rows += branch_phase(
+        st_kernel, invert_where, gen,
+        [("gather 50x50->20x20", (50, 50), (20, 20), False),
+         ("paste 20x20->50x50", (20, 20), (50, 50), True),
+         ("synth paste 16x16->50x50", (16, 16), (50, 50), True)],
+        backward=False)
 
     # every sample out of bounds: exactly zero
     img = torch.ones((64, 20, 20), device="cuda")
@@ -271,6 +336,29 @@ def kernel_phase(st_kernel, invert_where, bw, f32_peak):
         raise AssertionError("near-zero-scale paste is not finite and 0")
     print("  out-of-bounds gather and near-zero-scale paste: exactly 0",
           flush=True)
+    return rows
+
+
+def branch_phase(st_kernel, invert_where, gen, shapes, backward):
+    """Each of ``WINDOW_CASES`` at each shape, at the ragged N = 1023: the
+    forward (or, with ``backward``, the backward with g_img) against plain
+    in both modes; returns the rows."""
+    rows = []
+    for kind, branch in WINDOW_CASES.items():
+        for name, in_shape, out_shape, paste in shapes:
+            n = N_TRAIN - 1
+            img = torch.rand((n,) + in_shape, generator=gen, device="cuda")
+            zw = branch_where(kind, n, in_shape, out_shape, paste, gen,
+                              invert_where)
+            row = {"case": f"{name}, {kind}", "n": n}
+            if backward:
+                g = torch.randn((n,) + out_shape, generator=gen,
+                                device="cuda")
+                msg = check_bwd(st_kernel, row, img, zw, g, out_shape, True)
+            else:
+                msg = check_gather(st_kernel, row, img, zw, out_shape)
+            print(f"{msg} [{branch}]", flush=True)
+            rows.append(row)
     return rows
 
 
@@ -549,6 +637,11 @@ def bwd_phase(st_kernel, invert_where, bw, f32_peak):
                                           out_shape, need_img, bw, f32_peak)
         print(msg, flush=True)
         rows.append(row)
+    rows += branch_phase(
+        st_kernel, invert_where, gen,
+        [("gather bwd 50x50->20x20", (50, 50), (20, 20), False),
+         ("paste bwd 20x20->50x50", (20, 20), (50, 50), True)],
+        backward=True)
 
     # every sample out of range, and near-zero-scale pastes: exactly zero
     img = torch.rand((64, 20, 20), generator=gen, device="cuda")

@@ -17,6 +17,7 @@ products with cancellation, in another order than the plain matmuls).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -294,3 +295,90 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     _, m_k = step_k(card, (x.to(cuda), nums.to(cuda)), noise=noise_card)
     for k, v in m_c.items():
         torch.testing.assert_close(m_k[k].cpu(), v, rtol=1e-4, atol=1e-5)
+
+
+@functools.lru_cache(maxsize=None)
+def chip_smoke():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def branch_where(kind, n, in_shape, out_shape, paste, seed):
+    """``chip_smoke.branch_where``: windows that reach one kernel branch
+    (``chip_smoke.WINDOW_CASES`` names it)."""
+    assert kind in chip_smoke().WINDOW_CASES
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return chip_smoke().branch_where(kind, n, in_shape, out_shape, paste,
+                                     gen, tst.invert_where)
+
+
+WINDOW_KINDS = ["step-like windows", "one live row and column",
+                "windows on each edge", "negative scales", "dead beside live",
+                "tiny scales at an edge"]
+BRANCH_SHAPES = [  # input, output, paste
+    ((50, 50), (20, 20), False),
+    ((20, 20), (50, 50), True),
+    ((25, 31), (9, 13), False),
+]
+
+
+@pytest.mark.parametrize("mode", sorted(TOL))
+@pytest.mark.parametrize("in_shape, out_shape, paste", BRANCH_SHAPES)
+@pytest.mark.parametrize("kind", WINDOW_KINDS)
+def test_kernels_match_plain_on_branch_windows(cuda, mode, kind, in_shape,
+                                               out_shape, paste):
+    """Both kernels against plain on windows that reach each branch (live
+    intervals, zero rows, edge taps, decreasing p, dead examples), at a
+    ragged N; the backward twice, bit-identical."""
+    n = 257
+    img, _ = inputs(n, in_shape, 11)
+    zw = branch_where(kind, n, in_shape, out_shape, paste, 12)
+    out = st_kernel.st_gather_cuda(img, zw, out_shape, mode)
+    assert max_err(out, st_kernel.st_gather_plain(img, zw, out_shape,
+                                                  mode)) <= TOL[mode]
+    g = torch.randn((n,) + out_shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(13))
+    k_img, k_zw = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape, mode)
+    p_img, p_zw = st_kernel.st_gather_bwd_plain(img, zw, g, out_shape, mode)
+    assert bwd_close(k_img, p_img, 1e-5)
+    assert bwd_close(k_zw, p_zw, 1e-4)
+    again = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape, mode)
+    assert torch.equal(again[0], k_img) and torch.equal(again[1], k_zw)
+    none, z_only = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape, mode,
+                                                need_img=False)
+    assert none is None and torch.equal(z_only, k_zw)
+
+
+@pytest.mark.parametrize("in_shape, out_shape, window, live_px, dead_px", [
+    # a paste (the live-rectangle design): the glimpse spans a quarter of
+    # the canvas, at its centre
+    ((20, 20), (50, 50), [4.0, 4.0, 0.0, 0.0], (25, 25), (0, 0)),
+    # a gather (the dense design): the window's right part leaves the image
+    ((50, 50), (20, 20), [0.5, 0.5, 0.9, 0.0], (10, 0), (10, 19)),
+])
+def test_backward_nan_cotangent_contract(cuda, in_shape, out_shape, window,
+                                         live_px, dead_px):
+    """The kernel uses g only where a tap is live.  A NaN there gives NaN
+    in both gradients wherever the dense plain version has it; a NaN at a
+    pixel with no tap reaches neither (plain spreads it: 0 * NaN)."""
+    img, _ = inputs(2, in_shape, 14)
+    zw = torch.tensor([window, window], device=cuda)
+    g = torch.randn((2,) + out_shape, device=cuda)
+    g[(0,) + live_px] = float("nan")
+    g[(1,) + dead_px] = float("nan")
+    k = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape)
+    p = st_kernel.st_gather_bwd_plain(img, zw, g, out_shape)
+    for a, b in zip(k, p):
+        assert torch.isnan(b).all()
+        assert torch.equal(torch.isnan(a[0]), torch.isnan(b[0]))
+        assert not torch.isnan(a[1]).any()
+    clean = g.clone()
+    clean[(1,) + dead_px] = 0.0
+    ref = st_kernel.st_gather_bwd_cuda(img[1:], zw[1:], clean[1:], out_shape)
+    assert torch.equal(k[0][1], ref[0][0]) and torch.equal(k[1][1], ref[1][0])
