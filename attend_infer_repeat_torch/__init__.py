@@ -18,6 +18,9 @@ built with ``nvcc`` at first use::
     step = air.make_train_step(cfg, state.model, digit_bank=bank)
     state, metrics = step(state)                              # one update
 
+    state = air.train(cfg, workdir="runs/canonical_fast")     # the loop
+
+or ``python -m attend_infer_repeat_torch.train --config canonical_fast``.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise (``resolve_device``).
 """
@@ -42,6 +45,13 @@ _EXPORTS = {
     "make_train_step": "train",
     "make_scan_train_step": "train",
     "make_eval_step": "train",
+    "train": "train",
+    "CheckpointManager": "train",
+    "BestCheckpointTracker": "train",
+    "restore_latest": "train",
+    "evaluate": "eval",
+    "MetricsLogger": "eval",
+    "make_iwae_eval_step": "eval",
     "surrogate_loss": "models.estimator",
 }
 

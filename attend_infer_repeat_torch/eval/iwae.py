@@ -1,0 +1,61 @@
+"""Importance-weighted ELBO evaluation.
+
+``k`` posterior particles per image, combined with ``logsumexp − log k``
+over the true log importance weights ``log p(x, z_k) − log q(z_k | x)``
+at each particle's sampled latents (``estimator.log_importance_weights``).
+The particles run along the batch axis: one forward at batch ``k·B``
+(the JAX package ``vmap``s the forward over ``k`` keys).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from attend_infer_repeat_torch.configs import Config
+from attend_infer_repeat_torch.models.estimator import (
+    iwae_bound,
+    log_importance_weights,
+)
+from attend_infer_repeat_torch.train.state import prior_success_prob
+
+
+def make_iwae_eval_step(config: Config, model, n_particles: int = 5
+                        ) -> Callable:
+    """``(state, imgs, generator=None, noise=None) → dict`` of 0-d tensors.
+
+    Runs ``model`` (its own config, e.g. with ``explore_eps=None``) on the
+    parameters of ``state.model``.  Returns the analytic single-sample
+    ELBO mean (the training metric), the k-particle IWAE bound and
+    ``iwae_gap``, their difference.  ``noise`` injects one ``Noise`` per
+    particle; otherwise the k·B draws come from ``generator``.
+    """
+    k = n_particles
+
+    @torch.no_grad()
+    def eval_fn(state, imgs, generator: Optional[torch.Generator] = None,
+                noise: Optional[Sequence] = None):
+        p_success = prior_success_prob(config.prior, state.step)
+        imgs = torch.as_tensor(imgs).to(model.device)
+        batch = imgs.shape[0]
+        if noise is not None:
+            # particle j is rows j·B .. (j+1)·B − 1 of the wide batch
+            noise = tuple(torch.cat(parts, dim=1) for parts in zip(*noise))
+        out = torch.func.functional_call(
+            model, dict(state.model.named_parameters()),
+            (imgs.repeat(k, 1, 1), p_success),
+            {"generator": generator, "noise": noise})
+        log_w = log_importance_weights(out, config.model,
+                                       p_success).reshape(k, batch)
+        elbos = out.elbo.reshape(k, batch)
+        bound = iwae_bound(log_w, dim=0)                     # (B,)
+        return {
+            "iwae_bound": torch.mean(bound),
+            "elbo": torch.mean(elbos),
+            "log_w_mean": torch.mean(log_w),
+            "iwae_gap": torch.mean(bound) - torch.mean(elbos),
+            "n_particles": torch.tensor(float(k)),
+        }
+
+    return eval_fn

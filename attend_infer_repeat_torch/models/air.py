@@ -8,6 +8,7 @@ likelihood, the presence-masked analytic KLs and the exact count KL;
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional, Tuple
 
@@ -88,6 +89,14 @@ class AIRModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.decoder.mlp.dense[0].weight.device
+
+    def with_config(self, cfg: ModelConfig) -> "AIRModel":
+        """This model under another config, over the SAME ``Parameter``
+        objects: training either one trains both.  ``cfg`` may differ only
+        in switches read at run time (``max_scale``, ``explore_eps``)."""
+        memo = {id(t): t for t in (*self.parameters(), *self.buffers())}
+        memo[id(self.cfg)] = cfg        # every submodule holds this object
+        return copy.deepcopy(self, memo)
 
     def _prior(self):
         cfg = self.cfg

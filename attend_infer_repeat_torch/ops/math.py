@@ -1,8 +1,21 @@
-"""Primitive numeric helpers: straight-through clip, anneals, masked mean."""
+"""Primitive numeric helpers: straight-through clip, anneals, masked mean,
+and seeded generators."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def seeded_generator(device, *words: int) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from the integers ``words``.
+
+    torch has no ``fold_in``: ``numpy.random.SeedSequence`` mixes the words
+    into one seed, so ``seeded_generator(dev, seed, step, i)`` plays the part
+    of ``fold_in(fold_in(key(seed), step), i)``.
+    """
+    seed = np.random.SeedSequence(words).generate_state(1, np.uint64)[0]
+    return torch.Generator(device).manual_seed(int(seed))
 
 
 def clip_preserve(x: torch.Tensor, lo, hi) -> torch.Tensor:

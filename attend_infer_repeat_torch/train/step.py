@@ -13,16 +13,12 @@ model's noise from one seeded with ``seeds[1]``, where
 ``seeds = numpy.random.SeedSequence((b, s)).generate_state(2, uint64)``;
 both generators live on the model's device.  A step is thus a function of
 ``(state, step)`` alone, as ``fold_in(base_key, step)`` makes it in JAX.
-
-``cfg.remat`` is not honoured yet: the step keeps every activation for
-the backward (recompute changes no number in JAX, and three cell steps
-at batch 1024 fit the card many times over).
+``cfg.remat`` is the cell's business (``models/cell.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -143,9 +139,6 @@ def make_train_step(config: Config, model: AIRModel, digit_bank=None,
     """
     tcfg = config.train
     dev = model.device
-    if config.model.remat:
-        warnings.warn("remat is not honoured yet: the train step keeps its "
-                      "activations for the backward")
     bank = None
     if digit_bank is not None:
         bank = torch.as_tensor(digit_bank, dtype=torch.float32).to(dev)
@@ -244,8 +237,8 @@ def make_eval_step(config: Config, model: AIRModel) -> Callable:
     ``model``'s own config with ``explore_eps=None`` (the explore floor is
     a training device); the step index only selects the annealed prior.
     """
-    eval_model = AIRModel(dataclasses.replace(model.cfg, explore_eps=None),
-                          use_baseline=model.use_baseline, device=model.device)
+    eval_model = model.with_config(
+        dataclasses.replace(model.cfg, explore_eps=None))
 
     @torch.no_grad()
     def eval_fn(state: TrainState, imgs, nums,

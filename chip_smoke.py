@@ -28,31 +28,46 @@ Phases, in order (any failure raises and exits non-zero):
 5. the train step: ``canonical_fast`` at batch 1024 through
    ``create_train_state`` and ``make_train_step`` (warm-up, then timed
    steps), then one ``make_eval_step``; launch counts read around that
-   run (per step: 1 synthesis paste, 6 forward, 6 backward launches);
+   run (per step: 1 synthesis paste, 6 forward, 6 backward launches; the
+   preset's remat ``save_st`` recomputes no kernel);
 5b. one more step with every kernel call's inputs recorded; each kernel
    against plain and timed on the windows, images and cotangents that the
    step really gives it (after the counts were read);
 6. one step's loss and gradients through the kernels and through the
    plain spatial transformer, for ``canonical`` and ``canonical_fast``;
-7. a ``kernels`` JSON line, then the last line
+7. the training loop: ``train()`` on ``canonical_fast`` at batch 1024 to
+   200 steps (K-step chunks of 100, log/eval/save/figure points every
+   100, the basin detector at 100), launch counts read around that run;
+   the same run as 100 steps and a resume to 200, whose parameters and
+   optimizer state must equal the uninterrupted run's bit for bit; the
+   JSONL rows, the best checkpoint and finite metrics; then the CLI
+   (``python -m attend_infer_repeat_torch.train``) for 2 steps;
+8. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Imports nothing of JAX.  Needs one card; stops no process it did not
-start (it starts only ``nvidia-smi`` and ``nvcc``, and waits for both).
+Phases 3 and 3b include the ``crowded`` preset's 100×100 canvas.  Imports
+nothing of JAX.  Needs one card; stops no process it did not start (it
+starts ``nvidia-smi``, ``nvcc`` and the CLI run, and waits for each).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
 N_SERVE = 8192
-N_TRAIN = 1024          # the canonical_fast train step's batch
+N_TRAIN = 1024          # the canonical_fast (and crowded) train step's batch
+LOOP_STEPS = 200        # phase 7: train() to this step, resumed at half
 SLEEP_CYCLES = 50_000_000   # ~30 ms at the H100's ~1.7 GHz
 # Kernel against plain.  The kernel rounds as its plain version does (bit
 # for bit at these shapes), so the bf16 limit sits well under one bf16 ulp
@@ -296,6 +311,11 @@ def kernel_phase(st_kernel, invert_where, bw, f32_peak):
         ("paste 20x20->50x50", N_TRAIN, (20, 20), (50, 50), True, True),
         ("synth paste 16x16->50x50", 2 * N_TRAIN, (16, 16), (50, 50), True,
          True),
+        # crowded: 100x100 canvas, 5 steps, 0-5 digits, batch 1024
+        ("gather 100x100->20x20", N_TRAIN, (100, 100), (20, 20), False, True),
+        ("paste 20x20->100x100", N_TRAIN, (20, 20), (100, 100), True, True),
+        ("synth paste 16x16->100x100", 5 * N_TRAIN, (16, 16), (100, 100),
+         True, True),
         ("gather 50x50->20x20", 1, (50, 50), (20, 20), False, False),
         ("gather 50x50->20x20", 5, (50, 50), (20, 20), False, False),
         ("paste 20x20->50x50", 17, (20, 20), (50, 50), True, False),
@@ -317,7 +337,9 @@ def kernel_phase(st_kernel, invert_where, bw, f32_peak):
         st_kernel, invert_where, gen,
         [("gather 50x50->20x20", (50, 50), (20, 20), False),
          ("paste 20x20->50x50", (20, 20), (50, 50), True),
-         ("synth paste 16x16->50x50", (16, 16), (50, 50), True)],
+         ("synth paste 16x16->50x50", (16, 16), (50, 50), True),
+         ("gather 100x100->20x20", (100, 100), (20, 20), False),
+         ("paste 20x20->100x100", (20, 20), (100, 100), True)],
         backward=False)
 
     # every sample out of bounds: exactly zero
@@ -613,6 +635,13 @@ def bwd_phase(st_kernel, invert_where, bw, f32_peak):
          True),
         ("paste bwd 20x20->50x50", N_SERVE, (20, 20), (50, 50), True, True,
          True),
+        # crowded's shapes: both take the > 48 KB shared-memory opt-in
+        ("gather bwd 100x100->20x20, g_zw only (as the step)", N_TRAIN,
+         (100, 100), (20, 20), False, False, True),
+        ("gather bwd 100x100->20x20", N_TRAIN, (100, 100), (20, 20), False,
+         True, True),
+        ("paste bwd 20x20->100x100", N_TRAIN, (20, 20), (100, 100), True,
+         True, True),
         ("gather bwd 50x50->20x20", 1, (50, 50), (20, 20), False, True,
          False),
         ("gather bwd 50x50->20x20", 5, (50, 50), (20, 20), False, True,
@@ -640,7 +669,9 @@ def bwd_phase(st_kernel, invert_where, bw, f32_peak):
     rows += branch_phase(
         st_kernel, invert_where, gen,
         [("gather bwd 50x50->20x20", (50, 50), (20, 20), False),
-         ("paste bwd 20x20->50x50", (20, 20), (50, 50), True)],
+         ("paste bwd 20x20->50x50", (20, 20), (50, 50), True),
+         ("gather bwd 100x100->20x20", (100, 100), (20, 20), False),
+         ("paste bwd 20x20->100x100", (20, 20), (100, 100), True)],
         backward=True)
 
     # every sample out of range, and near-zero-scale pastes: exactly zero
@@ -673,17 +704,11 @@ def check_metrics(metrics, what):
 def train_phase(air, st_kernel, smi, bank):
     """canonical_fast train steps at batch 1024, then one eval step;
     returns the forward and backward kernel launches of that run."""
-    import warnings
-
     from attend_infer_repeat_torch.data import make_synth_fn
 
     fast = air.get_config("canonical_fast")
     state = air.create_train_state(fast, seed=0)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        step = air.make_train_step(fast, state.model, digit_bank=bank)
-    for w in caught:
-        print(f"  warning: {w.message}", flush=True)
+    step = air.make_train_step(fast, state.model, digit_bank=bank)
     synth = make_synth_fn(fast.data, bank)
     eval_step = air.make_eval_step(fast, state.model)
     start = {k: v.clone() for k, v in state.model.state_dict().items()}
@@ -855,6 +880,108 @@ def plain_step_phase(air, st_kernel, limits):
     return results
 
 
+def loop_rows(workdir):
+    return [json.loads(line) for line in
+            Path(workdir, "metrics.jsonl").read_text().splitlines()]
+
+
+def check_loop_rows(rows, detect, steps, what):
+    """The JSONL schedule of a loop run, and every metric finite."""
+    want = []
+    for s in steps:
+        want += [(s, "train"), (s, "eval"), (s, "train_eval")]
+        if s == detect:
+            want.append((s, "basin"))
+    got = [(r["step"], r["split"]) for r in rows]
+    if got != want:
+        raise AssertionError(f"{what}: JSONL rows {got}, expected {want}")
+    bad = [(r["step"], r["split"], k) for r in rows for k, v in r.items()
+           if isinstance(v, float) and not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{what}: metrics not finite: {bad}")
+
+
+def state_arrays(state):
+    """Parameters and optimizer state of a ``TrainState``, by name."""
+    out = dict(state.model.state_dict())
+    for g, st in state.opt_state.items():
+        for kind in ("nu", "trace"):
+            for i, t in enumerate(getattr(st, kind)):
+                out[f"opt/{g}/{kind}/{i}"] = t
+    return out
+
+
+def loop_phase(air, st_kernel, smi):
+    """``train()`` on canonical_fast at batch 1024; a resumed run against
+    an uninterrupted one; then the CLI.  Returns the forward and backward
+    launches of the uninterrupted run."""
+    fast = air.get_config("canonical_fast")
+    half = LOOP_STEPS // 2
+    # the basin detector runs at step 100 and logs its statistic; the
+    # 0.0 threshold keeps random-weight runs from restarting
+    cfg = dataclasses.replace(fast, train=dataclasses.replace(
+        fast.train, n_iters=LOOP_STEPS, scan_steps=half, log_every=half,
+        save_every=half, fig_every=half, eval_batches=2,
+        basin_detect_step=half, basin_accuracy_threshold=0.0))
+    kw = dict(use_tensorboard=False)
+    with tempfile.TemporaryDirectory(prefix="air_loop_") as tmp:
+        whole, resumed = os.path.join(tmp, "whole"), os.path.join(tmp, "res")
+        st_kernel.launches = st_kernel.bwd_launches = 0
+        (state, dt) = timed(air.train, cfg, workdir=whole, **kw)
+        counts = (st_kernel.launches, st_kernel.bwd_launches)
+        if state.step != LOOP_STEPS:
+            raise AssertionError(f"train() stopped at step {state.step}")
+        if counts[1] != 6 * LOOP_STEPS or counts[0] < 7 * LOOP_STEPS:
+            raise AssertionError(f"train(): launches {counts}, expected 6 "
+                                 f"backward and at least 7 forward a step")
+        check_loop_rows(loop_rows(whole), half, (half, LOOP_STEPS),
+                        "uninterrupted run")
+        best = json.loads(Path(whole, "ckpt_best", "best.json").read_text())
+        if not Path(whole, "ckpt_best", str(best["step"]), "state.pt").exists():
+            raise AssertionError(f"best checkpoint missing: {best}")
+        ckpts = sorted(int(p.name) for p in Path(whole, "ckpt").iterdir()
+                       if p.name.isdigit())
+        if ckpts != [half, LOOP_STEPS]:
+            raise AssertionError(f"checkpoints {ckpts}")
+        print(f"  train() {LOOP_STEPS} steps (canonical_fast, batch "
+              f"{N_TRAIN}, K={half}): {dt:.2f} s wall with 2 log/eval/save "
+              f"points, the basin statistic and figure attempts; "
+              f"{counts[0]} forward and {counts[1]} backward launches; "
+              f"best {best} on {smi}", flush=True)
+
+        air.train(cfg, workdir=resumed, n_iters=half, **kw)
+        again = air.train(cfg, workdir=resumed, **kw)
+        a, b = state_arrays(state), state_arrays(again)
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        if differ or again.step != state.step:
+            raise AssertionError(f"resumed run differs from the "
+                                 f"uninterrupted one in {differ[:5]}")
+        check_loop_rows(loop_rows(resumed), half, (half, LOOP_STEPS),
+                        "resumed run")
+        print(f"  {half} steps, then a resume to {LOOP_STEPS}: parameters "
+              f"and optimizer state ({len(a)} tensors) bit-equal to the "
+              f"uninterrupted run", flush=True)
+
+        cli = os.path.join(tmp, "cli")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "attend_infer_repeat_torch.train",
+             "--config", "canonical_fast", "--iters", "2", "--workdir", cli,
+             "--no-tensorboard"], cwd=Path(__file__).resolve().parent,
+            capture_output=True, text=True, timeout=600)
+        dt = time.perf_counter() - t
+        if proc.returncode:
+            raise AssertionError(f"CLI run failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        rows = loop_rows(cli)
+        check_loop_rows(rows, None, (2,), "CLI run")
+        ev = next(r for r in rows if r["split"] == "eval")
+        print(f"  CLI: 2 canonical_fast steps in a new process, {dt:.1f} s "
+              f"wall (start-up, build cache hit, 8+8 eval batches, save); "
+              f"eval elbo {ev['elbo']:.2f}", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -909,6 +1036,9 @@ def main() -> int:
     print("[6] one step through the plain ST on the card", flush=True)
     plain_step_phase(air, st_kernel, STEP_LIMITS)
 
+    print("[7] the training loop", flush=True)
+    loop_launches, loop_bwd_launches = loop_phase(air, st_kernel, smi)
+
     def kernel_line(name, source, replaces, launches, rows, head_case):
         timed = [r for r in rows if "ms" in r]
         head = next(r for r in timed if head_case(r["case"], r["n"]))
@@ -930,12 +1060,15 @@ def main() -> int:
 
     kernels = [
         kernel_line("st_gather", "st_gather.cu", 54,
-                    launches + train_launches, rows + step_rows,
+                    launches + train_launches + loop_launches,
+                    rows + step_rows,
                     lambda c, n: (c, n) == ("gather 50x50->20x20", N_SERVE)),
-        kernel_line("st_gather_bwd", "st_gather_bwd.cu", 155, bwd_launches,
+        kernel_line("st_gather_bwd", "st_gather_bwd.cu", 155,
+                    bwd_launches + loop_bwd_launches,
                     bwd_rows + step_bwd_rows,
                     lambda c, n: c.startswith("step paste bwd")),
     ]
+    print("[8] kernels", flush=True)
     print(f"  total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -122,9 +122,16 @@ def test_grid_synthesis_matches_jax(cfg):
 
 
 def test_uniform_placement_not_ported():
+    """Uniform placement synthesizes (its parity with the JAX package is
+    in ``test_torch_data.py``): in-range canvases and true counts."""
     bank, _ = load_digit_bank("auto", (16, 16))
-    with pytest.raises(NotImplementedError):
-        synthesize_batch(bank, tcfg.DataConfig(placement="uniform"), 2)
+    cfg = tcfg.DataConfig(placement="uniform", min_digits=1)
+    imgs, nums = synthesize_batch(bank, cfg, 8,
+                                  torch.Generator().manual_seed(0))
+    assert imgs.shape == (8, 50, 50) and nums.shape == (8,)
+    assert 0.0 <= float(imgs.min()) and float(imgs.max()) <= 1.0
+    assert bool(((nums >= 1) & (nums <= 2)).all())
+    assert bool((imgs.sum((1, 2)) > 0).all())
 
 
 def test_committed_bank_equals_sklearn():

@@ -426,8 +426,11 @@ def test_iwae_objective_step_and_scan(bank):
 
 
 def test_canonical_fast_preset_runs_as_written_and_warns_remat(bank):
-    """The preset sets remat, which is not honoured yet: the step warns
-    and runs.  (Widths cut to the tiny test model.)"""
+    """The preset sets remat ``save_st``, which the cell honours: building
+    the step raises no warning, and the step runs with remat.  (Widths cut
+    to the tiny test model.)"""
+    import warnings
+
     fast = tcfg.get_config("canonical_fast")
     cfg = dataclasses.replace(
         fast, model=dataclasses.replace(fast.model, **TINY),
@@ -436,9 +439,67 @@ def test_canonical_fast_preset_runs_as_written_and_warns_remat(bank):
         train=dataclasses.replace(fast.train, batch_size=4))
     assert cfg.model.remat and cfg.model.remat_policy == "save_st"
     state = create_train_state(cfg, device="cpu")
-    with pytest.warns(UserWarning, match="remat"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         step = make_train_step(cfg, state.model, digit_bank=bank)
-    state, metrics = step(state)
+        recomputed = []
+        hook = state.model.cell.encoder.register_forward_hook(
+            lambda *a: recomputed.append(torch.is_grad_enabled()))
+        try:
+            state, metrics = step(state)
+        finally:
+            hook.remove()
+    # the encoder ran 3 times forward and 3 more in the backward (remat)
+    assert len(recomputed) == 2 * cfg.model.max_steps
     assert all(np.isfinite(v.item()) for v in metrics.values())
     with pytest.raises(ValueError, match="not the model"):
         step(create_train_state(cfg, device="cpu"))
+
+
+# -- remat: the JAX package's nn.remat, as torch.utils.checkpoint -----------
+
+@pytest.mark.parametrize("switches", [{}, FAST], ids=["f32", "fast"])
+def test_remat_gives_the_same_loss_and_gradients(switches):
+    """``save_st`` and ``full`` recompute the cell in the backward; on the
+    CPU the loss and every gradient are bit-equal to no remat.  ``full``
+    re-runs the spatial transformer's forward, ``save_st`` does not."""
+    from attend_infer_repeat_torch.models.air import AIRModel
+    from attend_infer_repeat_torch.ops import st_kernel
+
+    x = torch.from_numpy(images(6))
+    results = {}
+    for policy in (None, "save_st", "full"):
+        mcfg = tcfg.ModelConfig(**TINY, **switches, remat=policy is not None,
+                                remat_policy=policy or "full")
+        model = AIRModel(mcfg, device="cpu", seed=0)
+        noise = model.sample_noise(6, torch.Generator().manual_seed(1))
+        loss, _ = surrogate_loss(model(x, 0.5, noise=noise))
+        calls = []
+        orig = st_kernel.st_gather_plain   # every ST forward on the CPU
+
+        def counting(*a, **kw):
+            calls.append(1)
+            return orig(*a, **kw)
+        st_kernel.st_gather_plain = counting
+        try:
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        finally:
+            st_kernel.st_gather_plain = orig
+        results[policy] = (loss, grads, len(calls))
+    ref_loss, ref_grads, _ = results[None]
+    for policy, (loss, grads, st_calls) in results.items():
+        assert torch.equal(loss, ref_loss), policy
+        assert all(torch.equal(a, b) for a, b in zip(grads, ref_grads)), \
+            policy
+    # in the backward, "full" runs each step's gather and paste again
+    assert results["save_st"][2] == results[None][2] == 0
+    assert results["full"][2] == 2 * TINY["max_steps"]
+
+
+def test_remat_rejects_an_unknown_policy():
+    from attend_infer_repeat_torch.models.air import AIRModel
+
+    model = AIRModel(tcfg.ModelConfig(**TINY, remat=True,
+                                      remat_policy="nope"), device="cpu")
+    with pytest.raises(ValueError, match="remat_policy"):
+        model(torch.from_numpy(images(2)), 0.5)
