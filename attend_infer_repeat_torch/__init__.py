@@ -18,9 +18,15 @@ built with ``nvcc`` at first use::
     step = air.make_train_step(cfg, state.model, digit_bank=bank)
     state, metrics = step(state)                              # one update
 
+    scan = air.make_scan_train_step(cfg, state.model, bank, 100)
+    state, rows = scan(state)        # 100 updates: one CUDA graph, replayed
+
     state = air.train(cfg, workdir="runs/canonical_fast")     # the loop
 
 or ``python -m attend_infer_repeat_torch.train --config canonical_fast``.
+``parallel`` splits the steps and serving over the ranks of a
+``torch.distributed`` mesh; ``utils`` has the profiler trace, the step
+timer and the NaN trap.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise (``resolve_device``).
 """
@@ -53,6 +59,17 @@ _EXPORTS = {
     "MetricsLogger": "eval",
     "make_iwae_eval_step": "eval",
     "surrogate_loss": "models.estimator",
+    "TrainState": "train",
+    "count_confusion": "eval",
+    "load_data": "data",
+    "make_mesh": "parallel",
+    "shard_batch": "parallel",
+    "make_shardmap_train_step": "parallel",
+    "debug_mode": "utils",
+    "checkify_fn": "utils",
+    "trace": "utils",
+    "StepTimer": "utils",
+    "enable_compilation_cache": "utils",
 }
 
 __all__ = sorted(_EXPORTS) + ["__version__", "resolve_device"]

@@ -7,6 +7,8 @@ the same weights.  Layout changes:
 
 - a flax ``Dense`` kernel is ``(in, out)``, a torch ``Linear`` weight
   ``(out, in)``: transposed;
+- a flax ``Conv`` kernel is ``(kh, kw, in, out)``, a torch ``Conv2d``
+  weight ``(out, in, kh, kw)``;
 - ``OptimizedLSTMCell`` keeps one kernel per gate: ``ii/if/ig/io`` on the
   input (no bias) and ``hi/hf/hg/ho`` on the hidden state (with bias).
   They are stacked in gate order i, f, g, o into ``lstm.ih`` / ``lstm.hh``.
@@ -54,6 +56,11 @@ def _walk(tree: Mapping, parent: str, prefix: str,
             attr = (_DENSE_IN[parent][k] if parent in _DENSE_IN
                     else f"dense.{k}")
             out[f"{prefix}{attr}.weight"] = _tensor(sub["kernel"]).t()
+            out[f"{prefix}{attr}.bias"] = _tensor(sub["bias"])
+        elif name.startswith("Conv_"):
+            attr = f"conv.{int(name.split('_')[1])}"
+            out[f"{prefix}{attr}.weight"] = _tensor(
+                sub["kernel"]).permute(3, 2, 0, 1)
             out[f"{prefix}{attr}.bias"] = _tensor(sub["bias"])
         elif name in _MODULES:
             _walk(sub, name, f"{prefix}{_MODULES[name]}.", out)

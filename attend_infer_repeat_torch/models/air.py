@@ -83,6 +83,13 @@ class AIRModel(nn.Module):
             d_where = len(where_param_indices(cfg))
             feats = 2 * d_where + 4 + cfg.n_what + 2 + cfg.max_steps
             self.baseline = BaselineMLP(cfg, feats)
+        # the where prior, as buffers so that no step copies it
+        w_idx = where_param_indices(cfg)
+        for name, values in (("where_prior_loc", cfg.where_prior_loc),
+                             ("where_prior_scale", cfg.where_prior_scale)):
+            self.register_buffer(name, torch.tensor(
+                [values[i] for i in w_idx], dtype=torch.float32),
+                persistent=False)
         init_params(self, torch.Generator().manual_seed(seed))
         self.to(resolve_device(device))
 
@@ -98,14 +105,9 @@ class AIRModel(nn.Module):
         memo[id(self.cfg)] = cfg        # every submodule holds this object
         return copy.deepcopy(self, memo)
 
-    def _prior(self):
-        cfg = self.cfg
-        w_idx = where_param_indices(cfg)
-        loc = torch.tensor([cfg.where_prior_loc[i] for i in w_idx],
-                           device=self.device)
-        scale = torch.tensor([cfg.where_prior_scale[i] for i in w_idx],
-                             device=self.device)
-        return loc, scale
+    def where_prior(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(loc, scale)`` of the where prior over the posterior's entries."""
+        return self.where_prior_loc, self.where_prior_scale
 
     def sample_noise(self, batch: int,
                      generator: torch.Generator | None = None) -> Noise:
@@ -156,7 +158,7 @@ class AIRModel(nn.Module):
         log_lik = torch.sum(normal_log_prob(x, canvas, cfg.output_std),
                             dim=(-2, -1))
 
-        prior_loc, prior_scale = self._prior()
+        prior_loc, prior_scale = self.where_prior()
         kl_where_t = torch.sum(normal_kl(steps.where_loc, steps.where_scale,
                                          prior_loc, prior_scale), dim=-1)
         kl_what_t = torch.sum(normal_kl(steps.what_loc, steps.what_scale,
@@ -192,6 +194,22 @@ class AIRModel(nn.Module):
             mode_steps=torch.argmax(pmf, dim=-1).to(torch.float32),
             baseline=baseline)
 
+    def generate_noise(self, batch: int, prior_success_prob,
+                       generator: torch.Generator | None = None):
+        """Draw ``generate``'s noise ``(n (B,), eps_what (B, T, n_what),
+        eps_where (B, T, d))`` on the model's device."""
+        cfg, dev = self.cfg, self.device
+        t_steps = cfg.max_steps
+        prior_pmf = geometric_prior(prior_success_prob, t_steps, device=dev)
+        d_where = len(where_param_indices(cfg))
+        n = torch.multinomial(prior_pmf + 1e-20, batch, replacement=True,
+                              generator=generator)
+        eps_what = torch.randn((batch, t_steps, cfg.n_what),
+                               generator=generator, device=dev)
+        eps_where = torch.randn((batch, t_steps, d_where),
+                                generator=generator, device=dev)
+        return n, eps_what, eps_where
+
     def generate(self, batch: int, prior_success_prob,
                  generator: torch.Generator | None = None,
                  noise: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -199,25 +217,18 @@ class AIRModel(nn.Module):
         """Sample images from p(x, z): ``(batch, H, W)``.
 
         ``noise = (n (B,), eps_what (B, T, n_what), eps_where (B, T, d))``
-        injects the object counts and the latent draws.
+        injects the object counts and the latent draws (``generate_noise``
+        draws them otherwise).
         """
         cfg, dev = self.cfg, self.device
         t_steps = cfg.max_steps
-        prior_pmf = geometric_prior(prior_success_prob, t_steps, device=dev)
         if noise is None:
-            d_where = len(where_param_indices(cfg))
-            n = torch.multinomial(prior_pmf + 1e-20, batch, replacement=True,
-                                  generator=generator)
-            eps_what = torch.randn((batch, t_steps, cfg.n_what),
-                                   generator=generator, device=dev)
-            eps_where = torch.randn((batch, t_steps, d_where),
-                                    generator=generator, device=dev)
-        else:
-            n, eps_what, eps_where = noise
+            noise = self.generate_noise(batch, prior_success_prob, generator)
+        n, eps_what, eps_where = noise
         step_idx = torch.arange(t_steps, device=dev)
         pres = (step_idx[None, :] < n[:, None]).to(torch.float32)
 
-        loc, scale = self._prior()
+        loc, scale = self.where_prior()
         z_where = expand_where(cfg, loc + scale * eps_where)
         glimpses = self.decoder(eps_what)
         canvases = st_paste(glimpses, st_where(cfg, z_where), cfg.img_size)

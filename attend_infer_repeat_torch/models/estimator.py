@@ -44,7 +44,7 @@ def presence_log_prob(outputs: AIROutputs) -> torch.Tensor:
 
 def surrogate_loss(outputs: AIROutputs, l2_params_norm=0.0,
                    l2_weight: float = 0.0, kl_beta=1.0,
-                   advantage_norm: bool = False,
+                   advantage_norm: bool = False, batch_mean=torch.mean,
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single scalar surrogate whose gradient is the AIR estimator.
 
@@ -52,7 +52,8 @@ def surrogate_loss(outputs: AIROutputs, l2_params_norm=0.0,
     decomposition plus estimator diagnostics.  ``kl_beta`` down-weights
     the z_what KL only, in the objective only; reported metrics use the
     true ELBO.  ``advantage_norm`` rescales the centered signal by
-    ``max(1, σ̂)`` of the batch.
+    ``max(1, σ̂)`` of the batch, whose two means ``batch_mean`` takes (a
+    data-parallel step passes the mean over the global batch).
     """
     elbo = outputs.elbo                                      # (B,)
     # relative to the true elbo, so kl_beta == 1 is bitwise elbo
@@ -70,8 +71,8 @@ def surrogate_loss(outputs: AIROutputs, l2_params_norm=0.0,
 
     adv_std = None
     if advantage_norm:
-        adv_std = torch.sqrt(torch.mean(torch.square(
-            advantage - torch.mean(advantage))) + 1e-8)
+        adv_std = torch.sqrt(batch_mean(torch.square(
+            advantage - batch_mean(advantage))) + 1e-8)
         advantage = advantage / torch.clamp(adv_std.detach(), min=1.0)
 
     reinforce = torch.sum(advantage * log_q, dim=-1)         # (B,)
@@ -148,7 +149,7 @@ def vimco_surrogate_loss(log_w: torch.Tensor, log_q_pres: torch.Tensor,
 
 
 def log_importance_weights(outputs: AIROutputs, cfg, prior_success_prob,
-                           what_weight=1.0) -> torch.Tensor:
+                           what_weight=1.0, where_prior=None) -> torch.Tensor:
     """Per-example ``log [p(x, z) / q(z | x)]`` at the sampled latents.
 
       log w = log p(x|z)
@@ -159,9 +160,14 @@ def log_importance_weights(outputs: AIROutputs, cfg, prior_success_prob,
     The probability of the sampled stopping pattern equals the count pmf
     at ``n = Σ_t pres_t`` under both q and the geometric prior.
     ``what_weight`` scales the z_what density-ratio term (the IWAE
-    counterpart of ``kl_beta``).
+    counterpart of ``kl_beta``).  ``where_prior`` is the model's
+    ``(loc, scale)`` (``AIRModel.where_prior``); without it they are made
+    from ``cfg`` on the outputs' device.
     """
-    from attend_infer_repeat_torch.models.modules import where_param_indices
+    from attend_infer_repeat_torch.models.modules import (
+        reduce_where,
+        where_param_indices,
+    )
     from attend_infer_repeat_torch.ops.distributions import (
         geometric_prior,
         normal_log_prob,
@@ -169,13 +175,14 @@ def log_importance_weights(outputs: AIROutputs, cfg, prior_success_prob,
 
     s = outputs.steps
     pres = s.pres                                             # (B, T)
-    w_idx = list(where_param_indices(cfg))
     dev = pres.device
-    z_w = s.z_where[..., w_idx]                               # reduced sample
-    prior_loc = torch.tensor([cfg.where_prior_loc[i] for i in w_idx],
-                             device=dev)
-    prior_scale = torch.tensor([cfg.where_prior_scale[i] for i in w_idx],
-                               device=dev)
+    z_w = reduce_where(cfg, s.z_where)                        # reduced sample
+    if where_prior is None:
+        w_idx = where_param_indices(cfg)
+        where_prior = tuple(
+            torch.tensor([v[i] for i in w_idx], device=dev)
+            for v in (cfg.where_prior_loc, cfg.where_prior_scale))
+    prior_loc, prior_scale = where_prior
 
     lw_where = torch.sum(
         normal_log_prob(z_w, prior_loc, prior_scale)

@@ -41,9 +41,10 @@ def decoder_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
-    """flax ``lecun_normal``: normal truncated at ±2σ, variance 1/fan_in."""
+    """flax ``lecun_normal``: normal truncated at ±2σ, variance 1/fan_in
+    (a ``Linear`` weight's fan-in is its row, a ``Conv2d``'s its filter)."""
     # stddev of a unit normal truncated to [-2, 2]
-    std = math.sqrt(1.0 / weight.shape[1]) / 0.87962566103423978
+    std = math.sqrt(1.0 / weight[0].numel()) / 0.87962566103423978
     with torch.no_grad():
         nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
                               generator=generator)
@@ -52,7 +53,7 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """Initialize every parameter of ``module`` as flax would."""
     for m in module.modules():
-        if isinstance(m, nn.Linear):
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
             lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
@@ -96,20 +97,54 @@ class MLP(nn.Module):
         return x.to(torch.float32)
 
 
+def same_padding(n: int, stride: int = 2, kernel: int = 3):
+    """flax ``'SAME'`` padding of one axis: ``(before, after)``.
+
+    The output has ``ceil(n / stride)`` pixels; flax pads the total that
+    needs with the odd pixel after, so a stride-2 3×3 pads (0, 1) at
+    n = 50 and (1, 1) at n = 25, where torch's ``padding=1`` pads (1, 1).
+    """
+    total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
+    return total // 2, total - total // 2
+
+
 class Encoder(nn.Module):
-    """Image encoder: flattened image → embedding (flat MLP)."""
+    """Image encoder: image → embedding.
+
+    With ``cfg.encoder_conv`` a stem of stride-2 3×3 convolutions (ELU,
+    flax ``'SAME'`` padding) runs first and its NHWC features, flattened
+    as flax flattens them, feed the MLP; without it the MLP sees the
+    flattened image.
+    """
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.encoder_conv:
-            raise NotImplementedError(
-                "the encoder's conv stem (encoder_conv) is not ported yet")
-        n_in = cfg.img_size[0] * cfg.img_size[1]
-        self.mlp = MLP(n_in, cfg.encoder_hidden, dtype=compute_dtype(cfg))
+        self.img_size = tuple(cfg.img_size)
+        self.dtype = compute_dtype(cfg)
+        (h, w), c_in = self.img_size, 1
+        self.conv = nn.ModuleList()
+        for feat in cfg.encoder_conv:
+            self.conv.append(nn.Conv2d(c_in, feat, 3, stride=2))
+            (h, w), c_in = (-(-h // 2), -(-w // 2)), feat
+        n_in = h * w * c_in
+        self.mlp = MLP(n_in, cfg.encoder_hidden, dtype=self.dtype)
         self.out_features = _width(n_in, cfg.encoder_hidden)
 
     def forward(self, img):
-        return self.mlp(img.reshape(img.shape[0], -1))
+        batch = img.shape[0]
+        if not self.conv:
+            return self.mlp(img.reshape(batch, -1))
+        d = self.dtype
+        x = img.reshape(batch, 1, *self.img_size).to(d)
+        for conv in self.conv:
+            (top, bottom), (left, right) = (same_padding(n)
+                                            for n in x.shape[-2:])
+            x = F.pad(x, (left, right, top, bottom))
+            x = F.elu(F.conv2d(x, conv.weight.to(d), conv.bias.to(d),
+                               stride=2))
+        # flax flattens (B, h, w, C)
+        x = x.permute(0, 2, 3, 1).reshape(batch, -1).to(torch.float32)
+        return self.mlp(x)
 
 
 class GaussianHead(nn.Module):
@@ -121,7 +156,10 @@ class GaussianHead(nn.Module):
         self.cfg = cfg
         self.loc = nn.Linear(in_features, event_dim)
         self.scale = nn.Linear(in_features, event_dim)
-        self.loc_bias = loc_bias
+        # a buffer, so that no step copies it to the device
+        self.register_buffer(
+            "loc_bias", None if loc_bias is None else torch.tensor(
+                loc_bias, dtype=torch.float32), persistent=False)
 
     def forward(self, h):
         d = compute_dtype(self.cfg)
@@ -129,8 +167,7 @@ class GaussianHead(nn.Module):
         raw = dense(self.scale, h, d).to(torch.float32)
         scale = F.softplus(raw + self.cfg.scale_offset) + self.cfg.min_scale
         if self.loc_bias is not None:
-            loc = loc + torch.tensor(self.loc_bias, dtype=torch.float32,
-                                     device=loc.device)
+            loc = loc + self.loc_bias
         return loc, scale
 
 
@@ -138,6 +175,13 @@ def where_param_indices(cfg: ModelConfig):
     """Indices into the 4-dim (sx, sy, tx, ty) prior tuples that the
     where-posterior parameterizes."""
     return (0, 2, 3) if cfg.isotropic_scale else (0, 1, 2, 3)
+
+
+def reduce_where(cfg: ModelConfig, z_where: torch.Tensor) -> torch.Tensor:
+    """The 4-dim affine → the entries ``where_param_indices`` names."""
+    if cfg.isotropic_scale:
+        return torch.cat([z_where[..., 0:1], z_where[..., 2:]], dim=-1)
+    return z_where
 
 
 def expand_where(cfg: ModelConfig, z_w: torch.Tensor) -> torch.Tensor:

@@ -40,7 +40,12 @@ def presence_pmf(presence_prob: torch.Tensor) -> torch.Tensor:
     and ``pmf(T) = prod_t p_t``.  Returns ``(..., T + 1)``.
     """
     p = presence_prob
-    cp = torch.cumprod(p, dim=-1)
+    # the running product written out: torch.cumprod's backward checks the
+    # input for zeros on the host, which a captured step cannot do
+    cp = [p[..., 0]]
+    for t in range(1, p.shape[-1]):
+        cp.append(cp[-1] * p[..., t])
+    cp = torch.stack(cp, dim=-1)
     ones = torch.ones_like(p[..., :1])
     cp_ext = torch.cat([ones, cp], dim=-1)
     p_next = torch.cat([p, torch.zeros_like(p[..., :1])], dim=-1)

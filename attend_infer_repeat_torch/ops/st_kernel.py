@@ -38,7 +38,9 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "st_gather.cu"
 BWD_SOURCE = _PKG / "csrc" / "st_gather_bwd.cu"
 SOURCES = (_PKG / "csrc" / "st_taps.cuh", SOURCE, BWD_SOURCE)
-BUILD_DIR = _PKG / "_build"
+DEFAULT_BUILD_DIR = _PKG / "_build"
+#: Where ``build`` puts the library (``utils.enable_compilation_cache``).
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

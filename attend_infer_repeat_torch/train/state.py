@@ -75,9 +75,10 @@ class Optimizer:
     RMSProp(lr, momentum) on the model group, with the optional global
     norm clip and cosine decay; RMSProp at a constant lr on the baseline.
 
-    ``update`` runs under ``torch.no_grad()`` and writes the parameters
+    ``apply`` runs under ``torch.no_grad()`` and writes the parameters
     and the state in place: that takes the place of JAX's donated buffers
-    (the previous values are not kept).
+    (the previous values are not kept).  Nothing rebinds a parameter,
+    ``nu`` or ``trace`` tensor, so a captured step keeps its addresses.
     """
 
     def __init__(self, cfg: TrainConfig, model: torch.nn.Module):
@@ -107,10 +108,25 @@ class Optimizer:
         decayed = (1 - cfg.lr_end_factor) * cosine + cfg.lr_end_factor
         return float(cfg.learning_rate * decayed)
 
-    @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor],
                state: Dict[str, GroupState]) -> None:
-        """One update of every parameter from ``grads`` (by parameter name)."""
+        """One update of every parameter from ``grads`` (by parameter
+        name) at each group's lr for its ``count``; advances the counts."""
+        dev = next(p for ps in self.params.values() for p in ps).device
+        self.apply(grads, state, {
+            g: torch.tensor(self.learning_rate(g, state[g].count),
+                            dtype=torch.float32, device=dev)
+            for g in GROUPS})
+        self.advance(state, 1)
+
+    @torch.no_grad()
+    def apply(self, grads: Dict[str, torch.Tensor],
+              state: Dict[str, GroupState],
+              lr: Dict[str, torch.Tensor]) -> None:
+        """The update's device part: every parameter, ``nu`` and ``trace``
+        written in place at the learning rates ``lr`` (0-d float32 tensors
+        on the parameters' device, by group).  Reads no host state, so a
+        CUDA graph can capture it; the caller advances the counts."""
         clip = self.cfg.grad_clip_norm
         for group, ps in self.params.items():
             if not ps:
@@ -128,11 +144,16 @@ class Optimizer:
             u = torch._foreach_add(st.nu, RMS_EPS)
             torch._foreach_rsqrt_(u)
             torch._foreach_mul_(u, gs)
-            torch._foreach_mul_(u, -self.learning_rate(group, st.count))
+            torch._foreach_mul_(u, torch.neg(lr[group]))
             torch._foreach_mul_(st.trace, self.cfg.momentum)
             torch._foreach_add_(st.trace, u)
             torch._foreach_add_(ps, st.trace)
-            st.count += 1
+
+    def advance(self, state: Dict[str, GroupState], n: int) -> None:
+        """Count ``n`` updates of every group that has parameters."""
+        for group, ps in self.params.items():
+            if ps:
+                state[group].count += n
 
 
 def global_norm(tensors) -> torch.Tensor:

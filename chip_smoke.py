@@ -33,20 +33,38 @@ Phases, in order (any failure raises and exits non-zero):
 5b. one more step with every kernel call's inputs recorded; each kernel
    against plain and timed on the windows, images and cotangents that the
    step really gives it (after the counts were read);
+5c. the K-step chunk as a replayed CUDA graph (``make_scan_train_step``):
+   for K = 4 and the preset's 100, the graphed chunk and the same K steps
+   run eagerly (``utils.debug_mode``) from one state must agree bit for
+   bit in parameters, optimizer state and every metric row (else the
+   largest gap is printed and held to phase 6's ``canonical_fast``
+   limits); launch counts read around that run (a replay counts the
+   launches of one captured step); then step wall and train img/s,
+   eager and graphed, with the preset's remat ``save_st`` and with remat
+   off;
 6. one step's loss and gradients through the kernels and through the
    plain spatial transformer, for ``canonical`` and ``canonical_fast``;
 7. the training loop: ``train()`` on ``canonical_fast`` at batch 1024 to
-   200 steps (K-step chunks of 100, log/eval/save/figure points every
-   100, the basin detector at 100), launch counts read around that run;
-   the same run as 100 steps and a resume to 200, whose parameters and
-   optimizer state must equal the uninterrupted run's bit for bit; the
-   JSONL rows, the best checkpoint and finite metrics; then the CLI
-   (``python -m attend_infer_repeat_torch.train``) for 2 steps;
+   200 steps (K-step chunks of 100 through the graph, log/eval/save/
+   figure points every 100, the basin detector at 100), launch counts
+   read around that run; the same run as 100 steps and a resume to 200,
+   whose parameters and optimizer state must equal the uninterrupted
+   run's bit for bit; the JSONL rows, the best checkpoint and finite
+   metrics; then the CLI (``python -m attend_infer_repeat_torch.train``)
+   for 2 steps;
+7b. data parallelism on a one-rank NCCL mesh (``parallel.make_mesh``):
+   the mesh step and the external-batch shard-map step against the plain
+   step from the same state, and a per-rank shard-map step;
+7c. ``utils.trace`` around a graphed chunk writes a trace that holds the
+   replayed kernels, and ``utils.debug_mode`` traps a NaN injected into
+   a train step's batch;
 8. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Phases 3 and 3b include the ``crowded`` preset's 100×100 canvas.  Imports
-nothing of JAX.  Needs one card; stops no process it did not start (it
+Phases 3 and 3b include the ``crowded`` preset's 100×100 canvas.  The
+``kernels`` line counts every launch of the main paths (phases 4, 5, 5c,
+7 and 7b): eager launches, and for a replayed graph the launches of one
+captured step times its replays.  Imports nothing of JAX.  Needs one card; stops no process it did not start (it
 starts ``nvidia-smi``, ``nvcc`` and the CLI run, and waits for each).
 """
 
@@ -915,6 +933,8 @@ def loop_phase(air, st_kernel, smi):
     """``train()`` on canonical_fast at batch 1024; a resumed run against
     an uninterrupted one; then the CLI.  Returns the forward and backward
     launches of the uninterrupted run."""
+    from attend_infer_repeat_torch.train.step import StepGraph
+
     fast = air.get_config("canonical_fast")
     half = LOOP_STEPS // 2
     # the basin detector runs at step 100 and logs its statistic; the
@@ -931,9 +951,13 @@ def loop_phase(air, st_kernel, smi):
         counts = (st_kernel.launches, st_kernel.bwd_launches)
         if state.step != LOOP_STEPS:
             raise AssertionError(f"train() stopped at step {state.step}")
-        if counts[1] != 6 * LOOP_STEPS or counts[0] < 7 * LOOP_STEPS:
-            raise AssertionError(f"train(): launches {counts}, expected 6 "
-                                 f"backward and at least 7 forward a step")
+        # one graph: its warm-up steps run eagerly, then every step is a
+        # replay; the log points add forward launches only
+        n_bwd = 6 * (LOOP_STEPS + StepGraph.WARMUP)
+        if counts[1] != n_bwd or counts[0] < 7 * (LOOP_STEPS
+                                                  + StepGraph.WARMUP):
+            raise AssertionError(f"train(): launches {counts}, expected "
+                                 f"{n_bwd} backward and 7 forward a step")
         check_loop_rows(loop_rows(whole), half, (half, LOOP_STEPS),
                         "uninterrupted run")
         best = json.loads(Path(whole, "ckpt_best", "best.json").read_text())
@@ -944,7 +968,8 @@ def loop_phase(air, st_kernel, smi):
         if ckpts != [half, LOOP_STEPS]:
             raise AssertionError(f"checkpoints {ckpts}")
         print(f"  train() {LOOP_STEPS} steps (canonical_fast, batch "
-              f"{N_TRAIN}, K={half}): {dt:.2f} s wall with 2 log/eval/save "
+              f"{N_TRAIN}, K={half}, graphed): {dt:.2f} s wall with 2 "
+              f"log/eval/save "
               f"points, the basin statistic and figure attempts; "
               f"{counts[0]} forward and {counts[1]} backward launches; "
               f"best {best} on {smi}", flush=True)
@@ -980,6 +1005,217 @@ def loop_phase(air, st_kernel, smi):
               f"wall (start-up, build cache hit, 8+8 eval batches, save); "
               f"eval elbo {ev['elbo']:.2f}", flush=True)
     return counts
+
+
+def state_gap(a, b):
+    """``(tensors that differ, worst name, worst rel L2 err)`` between the
+    parameters and optimizer state of two ``TrainState``s."""
+    x, y = state_arrays(a), state_arrays(b)
+    errs = {k: ((x[k] - y[k]).norm() / y[k].norm().clamp(min=1e-30)).item()
+            for k in x if not torch.equal(x[k], y[k])}
+    worst = max(errs, key=errs.get) if errs else None
+    return len(errs), worst, errs.get(worst, 0.0)
+
+
+def rows_gap(got, want):
+    """Per metric, the largest rel err of the rows (0 where equal)."""
+    return {k: 0.0 if torch.equal(got[k], want[k]) else
+            ((got[k] - want[k]).abs() / want[k].abs().clamp(min=1e-30))
+            .max().item() for k in want}
+
+
+def hold_to_step_limits(what, n_differ, worst, err, rows):
+    """Bit-equal, or within phase 6's ``canonical_fast`` limits (loss rows
+    as the loss, every other tensor and row as the gradients)."""
+    loss_lim, lim = STEP_LIMITS["canonical_fast"]
+    ok = (err <= lim and rows.get("loss", 0.0) <= loss_lim
+          and all(v <= lim for k, v in rows.items() if k != "loss"))
+    if n_differ == 0 and not any(rows.values()):
+        return "bit-equal"
+    msg = (f"{n_differ} tensors differ (worst {worst}: rel L2 {err:.3g}), "
+           f"metric rows up to {max(rows.values()):.3g} rel "
+           f"({max(rows, key=rows.get)})")
+    if not ok:
+        raise AssertionError(f"{what}: {msg}, over the limits "
+                             f"{STEP_LIMITS['canonical_fast']}")
+    return msg + f", within {STEP_LIMITS['canonical_fast']}"
+
+
+def graph_phase(air, st_kernel, smi, bank):
+    """``make_scan_train_step`` on canonical_fast at batch 1024 through
+    its CUDA graph against the same steps run eagerly, for K = 4 and 100;
+    then step walls, eager and graphed, with remat ``save_st`` and off.
+    Returns the launch counts of that run and the step walls."""
+    from attend_infer_repeat_torch.train.step import StepGraph
+    from attend_infer_repeat_torch.utils import debug_mode
+
+    fast = air.get_config("canonical_fast")
+    k_full = fast.train.scan_steps
+    per_step = (1 + 2 * fast.model.max_steps, 2 * fast.model.max_steps)
+    st_kernel.launches = st_kernel.bwd_launches = 0
+    expected = [0, 0]
+    walls = {}
+    for remat in (True, False):
+        cfg = dataclasses.replace(fast, model=dataclasses.replace(
+            fast.model, remat=remat))
+        tag = "remat save_st" if remat else "remat off"
+        for k in ((4, k_full) if remat else (k_full,)):
+            graphed = air.create_train_state(cfg, seed=4)
+            eager = air.create_train_state(cfg, seed=4)
+            scan = air.make_scan_train_step(cfg, graphed.model, bank, k)
+            (graphed, rows), dt_capture = timed(scan, graphed)
+            with debug_mode(nans=False):
+                eager_scan = air.make_scan_train_step(cfg, eager.model, bank,
+                                                      k)
+                (eager, want), dt_eager = timed(eager_scan, eager)
+            for i, n in enumerate(per_step):
+                expected[i] += n * (StepGraph.WARMUP + 2 * k)
+            counts = (st_kernel.launches, st_kernel.bwd_launches)
+            if list(counts) != expected:
+                raise AssertionError(f"graphed K={k} ({tag}): launches "
+                                     f"{counts}, expected {expected}")
+            if graphed.step != eager.step or any(
+                    graphed.opt_state[g].count != eager.opt_state[g].count
+                    for g in eager.opt_state):
+                raise AssertionError(f"K={k}: step or counts differ")
+            gap = hold_to_step_limits(f"graphed K={k} ({tag})",
+                                      *state_gap(graphed, eager),
+                                      rows_gap(rows, want))
+            check_metrics(rows, f"graphed K={k}")
+            print(f"  graphed chunk K={k} ({tag}) vs the same {k} steps "
+                  f"eager from one state: parameters, optimizer state "
+                  f"({len(state_arrays(eager))} tensors) and {len(rows)} "
+                  f"metric rows {gap}; capture + {k} replays "
+                  f"{dt_capture:.2f} s, eager {dt_eager:.2f} s", flush=True)
+            if k == k_full:
+                chunk = []
+                for _ in range(3):
+                    (graphed, rows), dt = timed(scan, graphed)
+                    chunk.append(dt / k)
+                    check_metrics(rows, "graphed chunk")
+                for i, n in enumerate(per_step):
+                    expected[i] += n * 3 * k
+                walls[tag] = {"eager_ms": dt_eager / k * 1e3,
+                              "graph_ms": statistics.median(chunk) * 1e3,
+                              "graph_ms_all": [c * 1e3 for c in chunk]}
+                w = walls[tag]
+                print(f"  step wall ({tag}): eager {w['eager_ms']:.3f} ms "
+                      f"({N_TRAIN / w['eager_ms'] * 1e3:.1f} train img/s), "
+                      f"graphed {w['graph_ms']:.3f} ms median of 3 chunks "
+                      f"of {k} ({', '.join(f'{c:.3f}' for c in w['graph_ms_all'])}"
+                      f"; {N_TRAIN / w['graph_ms'] * 1e3:.1f} train img/s), "
+                      f"{w['eager_ms'] / w['graph_ms']:.2f}x, batch "
+                      f"{N_TRAIN} on {smi}", flush=True)
+    on, off = walls["remat save_st"], walls["remat off"]
+    print(f"  remat save_st's step-time cost: eager "
+          f"{100 * (on['eager_ms'] / off['eager_ms'] - 1):+.1f} %, graphed "
+          f"{100 * (on['graph_ms'] / off['graph_ms'] - 1):+.1f} %", flush=True)
+    counts = (st_kernel.launches, st_kernel.bwd_launches)
+    if list(counts) != expected:
+        raise AssertionError(f"graph phase: launches {counts}")
+    return counts, walls
+
+
+def mesh_phase(air, st_kernel, bank):
+    """The data-parallel steps on a one-rank NCCL mesh against the plain
+    step; returns the launch counts of that run."""
+    import torch.distributed as dist
+    from attend_infer_repeat_torch.data import make_synth_fn
+    from attend_infer_repeat_torch.parallel import (
+        make_mesh, make_shardmap_train_step)
+
+    fast = air.get_config("canonical_fast")
+    mesh = make_mesh()
+    print(f"  mesh {mesh} on the {dist.get_backend()} backend", flush=True)
+    st_kernel.launches = st_kernel.bwd_launches = 0
+    try:
+        plain = air.create_train_state(fast, seed=6)
+        meshed = air.create_train_state(fast, seed=6)
+        plain, mp = air.make_train_step(fast, plain.model,
+                                        digit_bank=bank)(plain)
+        meshed, mm = air.make_train_step(fast, meshed.model, digit_bank=bank,
+                                         mesh=mesh)(meshed)
+        gap = hold_to_step_limits("mesh step", *state_gap(meshed, plain),
+                                  rows_gap(mm, mp))
+        print(f"  mesh step vs plain step: {gap}", flush=True)
+
+        imgs, nums = make_synth_fn(fast.data, bank)(
+            N_TRAIN, torch.Generator("cuda").manual_seed(5))
+        imgs = imgs.clone()
+        a = air.create_train_state(fast, seed=7)
+        b = air.create_train_state(fast, seed=7)
+        a, ma = air.make_train_step(fast, a.model)(a, (imgs, nums))
+        b, mb = make_shardmap_train_step(fast, b.model, bank, mesh,
+                                         external_batch=True)(b, (imgs, nums))
+        gap = hold_to_step_limits("shard-map step", *state_gap(b, a),
+                                  rows_gap(mb, ma))
+        print(f"  external-batch shard-map step vs plain step on one "
+              f"batch: {gap}", flush=True)
+        c = air.create_train_state(fast, seed=8)
+        step = make_shardmap_train_step(fast, c.model, bank, mesh)
+        for _ in range(2):
+            c, mc = step(c)
+            check_metrics(mc, "per-rank shard-map step")
+        print(f"  per-rank shard-map step: 2 steps, elbo "
+              f"{mc['elbo'].item():.2f}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    counts = (st_kernel.launches, st_kernel.bwd_launches)
+    # 6 steps, 2 of them on an injected batch (no synthesis), and the
+    # synthesis of that batch
+    if counts != (6 * 7 - 2 + 1, 6 * 6):
+        raise AssertionError(f"mesh phase: launches {counts}")
+    return counts
+
+
+def utils_phase(air, bank):
+    """``utils.trace`` around a graphed chunk; ``debug_mode`` trapping a
+    NaN in a train step's batch."""
+    from attend_infer_repeat_torch.data import make_synth_fn
+    from attend_infer_repeat_torch.utils import debug_mode, trace
+
+    fast = air.get_config("canonical_fast")
+    with tempfile.TemporaryDirectory(prefix="air_trace_") as logdir:
+        # the profiler is brought up before the capture, so that it sees
+        # the replayed kernels one by one
+        with trace(os.path.join(logdir, "first")):
+            torch.ones(1, device="cuda").add_(1)
+        state = air.create_train_state(fast, seed=9)
+        scan = air.make_scan_train_step(fast, state.model, bank, 4)
+        state, _ = scan(state)
+        logdir = os.path.join(logdir, "chunk")
+        with trace(logdir, annotate="graphed chunk"):
+            state, _ = scan(state)
+            torch.cuda.synchronize()
+        files = [p for p in Path(logdir).rglob("*") if p.is_file()]
+        if len(files) != 1:
+            raise AssertionError(f"trace files: {files}")
+        events = json.loads(files[0].read_text())["traceEvents"]
+        names = [e.get("name", "") for e in events
+                 if e.get("cat") == "kernel"]
+        kernels = sum("st_gather" in n for n in names)
+        if not (any(e.get("name") == "graphed chunk" for e in events)
+                and names):
+            raise AssertionError("the trace lacks the annotation or any "
+                                 "device kernel")
+        print(f"  trace of a graphed chunk of 4: {files[0].name}, "
+              f"{files[0].stat().st_size / 1e6:.2f} MB, {len(names)} "
+              f"kernels, {kernels} of them the ST kernels (4 replays of "
+              f"13)", flush=True)
+
+    other = air.create_train_state(fast, seed=10)
+    step = air.make_train_step(fast, other.model, digit_bank=bank)
+    imgs, nums = make_synth_fn(fast.data, bank)(
+        N_TRAIN, torch.Generator("cuda").manual_seed(6))
+    imgs = imgs.clone()
+    imgs[3, 20, 20] = float("nan")
+    try:
+        with debug_mode(nans=True):
+            step(other, (imgs, nums))
+    except FloatingPointError as e:
+        print(f"  debug_mode trapped the injected NaN: {e}", flush=True)
+    else:
+        raise AssertionError("debug_mode did not trap the injected NaN")
 
 
 def main() -> int:
@@ -1033,11 +1269,21 @@ def main() -> int:
                                                  f32_peak)
     del state, step
 
+    print("[5c] the K-step chunk as a replayed CUDA graph", flush=True)
+    (graph_launches, graph_bwd_launches), walls = graph_phase(
+        air, st_kernel, smi, bank)
+
     print("[6] one step through the plain ST on the card", flush=True)
     plain_step_phase(air, st_kernel, STEP_LIMITS)
 
     print("[7] the training loop", flush=True)
     loop_launches, loop_bwd_launches = loop_phase(air, st_kernel, smi)
+
+    print("[7b] data parallelism on a one-rank NCCL mesh", flush=True)
+    mesh_launches, mesh_bwd_launches = mesh_phase(air, st_kernel, bank)
+
+    print("[7c] utils: a trace of a graphed chunk, the NaN trap", flush=True)
+    utils_phase(air, bank)
 
     def kernel_line(name, source, replaces, launches, rows, head_case):
         timed = [r for r in rows if "ms" in r]
@@ -1060,11 +1306,13 @@ def main() -> int:
 
     kernels = [
         kernel_line("st_gather", "st_gather.cu", 54,
-                    launches + train_launches + loop_launches,
+                    launches + train_launches + graph_launches
+                    + loop_launches + mesh_launches,
                     rows + step_rows,
                     lambda c, n: (c, n) == ("gather 50x50->20x20", N_SERVE)),
         kernel_line("st_gather_bwd", "st_gather_bwd.cu", 155,
-                    bwd_launches + loop_bwd_launches,
+                    bwd_launches + graph_bwd_launches + loop_bwd_launches
+                    + mesh_bwd_launches,
                     bwd_rows + step_bwd_rows,
                     lambda c, n: c.startswith("step paste bwd")),
     ]

@@ -6,18 +6,23 @@ run of every training preset.
 (no flag: all three).  Needs CUDA; prints the card's name and power limit
 first and one JSON line per part; the full log goes to stdout.
 
-- ``--overhead``: ``canonical_fast`` at batch 1024, ``train()`` to 200
-  steps in K-step chunks of 100 with log, eval (the preset's 8+8
-  batches), save and figure points every 100.  Each chunk is timed
-  inside the run (synchronised before and after), so the rest of the
-  wall splits into the set-up (up to the first chunk) and the log
-  points (everything after it that is not a chunk), without comparing
-  separate runs whose host speed differs.  Three runs after a warm-up.
+- ``--overhead``: ``canonical_fast`` at batch 1024, ``train()`` to 1000
+  steps in K-step chunks of 100 (each a replay of the captured step)
+  with log, eval (the preset's 8+8 batches), save and figure points at
+  the preset's 500.  Each chunk is timed inside the run (synchronised
+  before and after), so the rest of the wall splits into the set-up (up
+  to the first chunk) and the log points (everything after it that is
+  not a chunk), without comparing separate runs whose host speed
+  differs; the first chunk, which captures the graph, is reported apart.
+  The wall per 500 steps is the run's wall after the set-up over 2.
+  Three runs after a warm-up.
 - ``--remat``: ``canonical_fast`` train steps with remat off, ``save_st``
   and ``full``, in 4 rounds that each run the three in turn (the order
-  rotating): the wall of 250 steps after 3 warm-up steps, scaled to 500,
-  and the peak device memory of those steps (``max_memory_allocated``
-  after ``reset_peak_memory_stats``).
+  rotating), eagerly (``make_train_step``) and through the graphed chunk
+  (``make_scan_train_step``, K = 50, captured before the timing): the
+  wall of 250 steps after warm-up, scaled to 500, and the peak device
+  memory of those steps (``max_memory_allocated`` after
+  ``reset_peak_memory_stats``; a graph's private pool counts).
 - ``--presets``: ``python -m attend_infer_repeat_torch.train --config P
   --iters 3`` for each training preset, at its own widths and batch, in a
   temporary workdir; exit code, wall, and the logged step-3 metrics.
@@ -53,13 +58,13 @@ def sync_wall(fn, *args, **kw):
     return out, time.perf_counter() - t
 
 
-def overhead(air, n=200, k=100, runs=3):
+def overhead(air, n=1000, k=100, every=500, runs=3):
     from attend_infer_repeat_torch.train import loop as loop_mod
 
     fast = air.get_config("canonical_fast")
     cfg = dataclasses.replace(fast, train=dataclasses.replace(
-        fast.train, n_iters=n, scan_steps=k, log_every=k, save_every=k,
-        fig_every=k))
+        fast.train, n_iters=n, scan_steps=k, log_every=every,
+        save_every=every, fig_every=every))
     real = loop_mod.make_scan_train_step
     chunks = []
 
@@ -89,20 +94,26 @@ def overhead(air, n=200, k=100, runs=3):
                 setup = chunks[0][0] - t0
                 steps_s = sum(d for _, d in chunks)
                 rows.append({"wall_s": wall, "setup_s": setup,
+                             "first_chunk_s": chunks[0][1],
                              "chunks_s": steps_s,
+                             "step_ms": sum(d for _, d in chunks[1:])
+                             / (n - k) * 1e3,
+                             "wall_per_500_s": (wall - setup) * 500 / n,
                              "log_point_s": (wall - setup - steps_s)
-                             / (n // k)})
+                             / (n // every)})
     finally:
         loop_mod.make_scan_train_step = real
     point = statistics.median(r["log_point_s"] for r in rows)
-    step_s = statistics.median(r["chunks_s"] for r in rows) / n
-    return {"part": "overhead", "steps": n, "k": k,
+    step_s = statistics.median(r["step_ms"] for r in rows) / 1e3
+    return {"part": "overhead", "steps": n, "k": k, "log_every": every,
             "eval_batches": cfg.train.eval_batches, "runs": rows,
             "log_point_s": point, "step_ms": step_s * 1e3,
+            "wall_per_500_s": statistics.median(r["wall_per_500_s"]
+                                                for r in rows),
             "share_at_log_every_500": point / (point + 500 * step_s)}
 
 
-def remat(air, n=250, rounds=4):
+def remat(air, n=250, k=50, rounds=4):
     from attend_infer_repeat_torch.data import load_digit_bank
 
     fast = air.get_config("canonical_fast")
@@ -110,34 +121,44 @@ def remat(air, n=250, rounds=4):
     policies = {"off": dict(remat=False), "save_st": dict(remat=True),
                 "full": dict(remat=True, remat_policy="full")}
     names = list(policies)
-    out = {p: {"wall_500_s": [], "peak_bytes": []} for p in policies}
+    out = {f"{p}/{mode}": {"wall_500_s": [], "peak_bytes": []}
+           for p in policies for mode in ("eager", "graph")}
     for r in range(rounds):
         for name in names[r % 3:] + names[:r % 3]:
             cfg = dataclasses.replace(fast, model=dataclasses.replace(
                 fast.model, **policies[name]))
-            state = air.create_train_state(cfg)
-            step = air.make_train_step(cfg, state.model, digit_bank=bank)
-            for _ in range(3):
-                state, _ = step(state)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            for mode in ("eager", "graph"):
+                state = air.create_train_state(cfg)
+                if mode == "eager":
+                    step, per = air.make_train_step(
+                        cfg, state.model, digit_bank=bank), 1
+                else:
+                    step, per = air.make_scan_train_step(
+                        cfg, state.model, bank, k), k
+                for _ in range(max(3 // per, 1)):  # warm-up; captures
+                    state, _ = step(state)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
 
-            def run():
-                s = state
-                for _ in range(n):
-                    s, m = step(s)
-                return m
-            m, wall = sync_wall(run)
-            if not torch.isfinite(m["loss"]).item():
-                raise AssertionError(f"remat {name}: loss not finite")
-            out[name]["wall_500_s"].append(wall * 500 / n)
-            out[name]["peak_bytes"].append(torch.cuda.max_memory_allocated())
-            del state, step
-            torch.cuda.empty_cache()
+                def run():
+                    s = state
+                    for _ in range(n // per):
+                        s, m = step(s)
+                    return m
+                m, wall = sync_wall(run)
+                if not torch.isfinite(m["loss"]).all().item():
+                    raise AssertionError(f"remat {name} {mode}: loss not "
+                                         f"finite")
+                key = f"{name}/{mode}"
+                out[key]["wall_500_s"].append(wall * 500 / n)
+                out[key]["peak_bytes"].append(
+                    torch.cuda.max_memory_allocated())
+                del state, step
+                torch.cuda.empty_cache()
     for v in out.values():
         v["median_wall_500_s"] = statistics.median(v["wall_500_s"])
-    return {"part": "remat", "steps": n, "batch": fast.train.batch_size,
-            "policies": out}
+    return {"part": "remat", "steps": n, "k": k,
+            "batch": fast.train.batch_size, "policies": out}
 
 
 def presets(iters=3):

@@ -2,17 +2,23 @@
 
     python3 scripts/torch_profile_serving.py [--preset serving] [--batch 8192]
     python3 scripts/torch_profile_serving.py --train [--preset canonical_fast]
-        [--batch 1024]
+        [--batch 1024] [--k 20] [--eager] [--no-remat]
 
 Serving builds the preset's model (random weights from a seed, no NVIL
 baseline) and synthesizes one batch of canvases; ``--train`` builds the
-preset's train state and step (synthesis inside the step, batch 1024 by
-default).  Then, for one unit of work (a request, or a train step):
+preset's train state and its K-step chunk (``make_scan_train_step``: on
+the card one captured step replayed K times; synthesis inside the step,
+batch 1024 by default), or with ``--eager`` the eager one-step
+``make_train_step``; ``--no-remat`` turns the preset's remat off.  Then,
+for one unit of work (a request, or a train step; a chunk's numbers are
+divided by its K steps):
 
 - times 10 units with the host clock around ``torch.cuda.synchronize``;
 - traces 3 units with ``torch.profiler`` and prints the device time by
-  kernel, the kernel launches per unit and the device's busy share,
-  both of the traced wall time and of the unprofiled median wall.
+  kernel, the device operations per unit (a replayed graph's kernels
+  each count), the kernel wrappers' launch counts per unit and the
+  device's busy share, both of the traced wall time and of the
+  unprofiled median wall.
 
 Prints the card's name and power limit first.  Needs one CUDA card.
 """
@@ -40,6 +46,12 @@ def main() -> int:
                     help="serving (default) or, with --train, canonical_fast")
     ap.add_argument("--batch", type=int, default=None,
                     help="8192 (serving) or 1024 (--train) by default")
+    ap.add_argument("--k", type=int, default=20,
+                    help="--train: steps per graphed chunk")
+    ap.add_argument("--eager", action="store_true",
+                    help="--train: the eager one-step make_train_step")
+    ap.add_argument("--no-remat", action="store_true",
+                    help="--train: turn the preset's remat off")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
@@ -60,12 +72,24 @@ def main() -> int:
     cfg = air.get_config(preset)
     bank, _ = load_digit_bank(cfg.data.source, cfg.data.digit_size)
     gen = torch.Generator("cuda").manual_seed(0)
+    per = 1                                   # units of work per call
+    # bring the profiler (CUPTI) up before a graph is captured, so that
+    # the trace sees the replayed kernels one by one
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
     if args.train:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, batch_size=batch))
+            cfg.train, batch_size=batch), model=dataclasses.replace(
+            cfg.model, remat=cfg.model.remat and not args.no_remat))
         state = air.create_train_state(cfg, seed=0)
-        step = air.make_train_step(cfg, state.model, digit_bank=bank)
         unit = "train step"
+        if args.eager:
+            step = air.make_train_step(cfg, state.model, digit_bank=bank)
+        else:
+            step = air.make_scan_train_step(cfg, state.model, bank, args.k)
+            per = args.k
+        print(f"{'eager step' if args.eager else f'graphed chunk of {per}'}"
+              f", remat {cfg.model.remat_policy if cfg.model.remat else 'off'}")
 
         def work():
             step(state)
@@ -86,18 +110,18 @@ def main() -> int:
         t = time.perf_counter()
         work()
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
+        walls.append((time.perf_counter() - t) / per)
     walls.sort()
     print(f"{preset} batch {batch}: {unit} wall ms min "
           f"{walls[0] * 1e3:.3f} median {walls[5] * 1e3:.3f}; img/s at the "
           f"median {batch / walls[5]:.1f}")
 
-    n_units = 3
+    n_units = 3 * per
     st_kernel.launches = st_kernel.bwd_launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for _ in range(n_units):
+        for _ in range(n_units // per):
             work()
         torch.cuda.synchronize()
         traced = time.perf_counter() - t

@@ -36,6 +36,7 @@ CASES = {
     "canvas_rebuild": (dict(canvas_rebuild=True), "f32"),
     "canonical_fast": (FAST, "bf16"),
     "canonical_fast_rebuild": (dict(FAST, canvas_rebuild=True), "bf16"),
+    "conv_stem": (dict(encoder_conv=(4, 8)), "f32"),
 }
 
 

@@ -145,10 +145,48 @@ def test_where_helpers_and_true_clip():
     assert zw.grad.tolist() == [[1.0, 0.0, 1.0, 1.0], [0.0, 1.0, 1.0, 1.0]]
 
 
+def conv_stem_case(mix, size, seed=0):
+    """The encoder with ``encoder_conv=(4, 8)`` at ``size`` in both
+    packages, on flax's weights: (port output, flax output)."""
+    jc, tc = model_configs(img_size=size, encoder_conv=(4, 8), **DTYPES[mix])
+    x = np.abs(x_np((5,) + size, seed))
+    jmod = jm.Encoder(jc)
+    params = jmod.init(jax.random.key(seed), jnp.asarray(x))
+    tmod = load(tm.Encoder(tc), params, "Encoder")
+    with torch.no_grad():
+        out = tmod(torch.from_numpy(x))
+    return out, jmod.apply(params, jnp.asarray(x))
+
+
 def test_conv_stem_not_ported():
-    _, tc = model_configs(encoder_conv=(8,))
-    with pytest.raises(NotImplementedError):
-        tm.Encoder(tc)
+    """Kept under its old name, from when the stem raised: the stem at
+    24×24 in f32 against flax (flax pads 'SAME' as (0, 1) there), and its
+    layout: (out, in, 3, 3) kernels ahead of the MLP, in the state_dict."""
+    out, ref = conv_stem_case("f32", (24, 24))
+    assert out.shape == (5, 32)
+    check(out, ref, TOL["f32"])
+    _, tc = model_configs(encoder_conv=(4, 8))
+    shapes = {k: tuple(v.shape) for k, v in tm.Encoder(tc).state_dict().items()}
+    assert shapes["conv.0.weight"] == (4, 1, 3, 3)
+    assert shapes["conv.1.weight"] == (8, 4, 3, 3)
+    assert shapes["mlp.dense.0.weight"] == (32, 6 * 6 * 8)
+
+
+@pytest.mark.parametrize("mix", sorted(DTYPES))
+@pytest.mark.parametrize("size", [(24, 24), (25, 31)], ids=["24x24", "25x31"])
+def test_conv_stem_matches_flax(size, mix):
+    """Even and odd sides: flax 'SAME' pads (0, 1) at an even side and
+    (1, 1) at 25 and 31 (and at 13 in the second layer)."""
+    out, ref = conv_stem_case(mix, size, seed=1)
+    check(out, ref, TOL[mix])
+
+
+def test_same_padding_is_flax_same():
+    for n in range(1, 60):
+        lo, hi = tm.same_padding(n)
+        want = jax.lax.padtype_to_pads((n,), (3,), (2,), "SAME")[0]
+        assert (lo, hi) == tuple(want), n
+    assert tm.same_padding(50) == (0, 1) and tm.same_padding(25) == (1, 1)
 
 
 @pytest.mark.parametrize("switches", [{}, FAST], ids=["serving", "fast"])

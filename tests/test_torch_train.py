@@ -503,3 +503,45 @@ def test_remat_rejects_an_unknown_policy():
                                       remat_policy="nope"), device="cpu")
     with pytest.raises(ValueError, match="remat_policy"):
         model(torch.from_numpy(images(2)), 0.5)
+
+
+# -- the K-step chunk's replay logic, without the capture ---------------------
+
+def test_step_graph_logic_equals_eager_steps(setup, bank):
+    """``StepGraph`` with its capture stubbed out (each "replay" runs the
+    body it would capture, eagerly): the warm-up leaves the state as it
+    was, the schedule table, the row index, the per-step seeds and the
+    metric buffer give two chunks equal to six eager steps, bit for bit.
+    (The capture itself needs the card: ``test_torch_graph_cuda.py``.)"""
+    from attend_infer_repeat_torch.train.step import StepGraph, _TrainStep
+
+    class Uncaptured(StepGraph):
+        def _capture(self, state, capture):
+            self._state = state
+            return (0, 0)
+
+        def _launch(self):
+            self._body(self._state)
+
+    base, _ = setup
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, kl_warmup_steps=4, lr_decay_steps=5))
+    state = create_train_state(cfg, device="cpu")
+    eager = copy.deepcopy(state)
+    ts = _TrainStep(cfg, state.model, digit_bank=bank)
+    before = params_of(state)
+    graph = Uncaptured(ts, state, 3)
+    assert state.step == 0 and all(
+        torch.equal(v, before[k]) for k, v in params_of(state).items())
+    chunks = [graph.replay(state)[1] for _ in range(2)]
+    step = make_train_step(cfg, eager.model, digit_bank=bank)
+    rows = [step(eager)[1] for _ in range(6)]
+    assert state.step == eager.step == 6
+    assert state.opt_state["model"].count == eager.opt_state["model"].count
+    for k, v in params_of(eager).items():
+        assert torch.equal(v, params_of(state)[k]), k
+    for c, chunk in enumerate(chunks):
+        for k, v in chunk.items():
+            want = torch.stack([r[k] for r in rows[3 * c:3 * c + 3]])
+            assert torch.equal(v, want), (c, k)
+    assert len(set(chunks[1]["prior_success_prob"].tolist())) == 3
