@@ -29,8 +29,8 @@ class ModelConfig:
     # Network widths
     rnn_hidden: int = 256
     encoder_hidden: Tuple[int, ...] = (256,)
-    # Optional stride-2 conv stem before the encoder MLP (not ported yet:
-    # no preset sets it, and the port raises NotImplementedError).
+    # Optional stride-2 conv stem before the encoder MLP (no preset sets
+    # it; ``models/modules.py`` builds it as flax does).
     encoder_conv: Tuple[int, ...] = ()
     glimpse_encoder_hidden: Tuple[int, ...] = (256,)
     decoder_hidden: Tuple[int, ...] = (256,)
@@ -147,7 +147,7 @@ class DataConfig:
     max_digits: int = 2
     scale_range: Tuple[float, float] = (1.0, 1.0)
     # "grid": distinct grid cells (disjoint boxes); "uniform": uniform
-    # in-bounds positions with soft overlap rejection (not ported yet).
+    # in-bounds positions with soft overlap rejection.
     placement: str = "grid"
     overlap_iou_max: float = 0.25
     place_attempts: int = 5

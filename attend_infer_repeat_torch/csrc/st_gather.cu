@@ -9,11 +9,12 @@
 // sample with zero padding.  This kernel computes it in that tap form.
 //
 // What bounds it on the card: memory.  A 50x50 -> 20x20 gather over 8192
-// examples moves at most ~95 MB (each input read once, each output written
-// once); it reads only the input pixels its nonzero taps touch, so a small
-// window moves less.  It needs ~0.1 GFLOP in tap form; the dense form
-// would need ~140 kFLOP per example (~1.1 GFLOP), which on CUDA cores is
-// close to the memory time.  The tap form keeps the arithmetic far below that.
+// examples moves ~95 MB (each input read once, each output written once):
+// the taps need only the input pixels they touch, but the check for
+// non-finite pixels (below) reads every one.  It needs ~0.1 GFLOP in tap
+// form; the dense form would need ~140 kFLOP per example (~1.1 GFLOP),
+// which on CUDA cores is close to the memory time.  The tap form keeps
+// the arithmetic far below that.
 // At N = 1024 the grid is one wave of blocks, so there a launch takes a
 // fixed cost plus its slowest block's latency: a chain of dependent loads,
 // not bytes, sets it.  At N = 8192 the same chain repeats over several
@@ -22,7 +23,7 @@
 // Design: one block per example.
 //   1. The block loads its zw, then computes the two taps of every output
 //      row and every output column (h + w coordinates, not h * w) into
-//      shared memory.
+//      shared memory, and checks its example for non-finite pixels.
 //   2. Each thread owns runs of V consecutive pixels of one output row
 //      (V = 4, 2 or 1, the largest that divides the row), stored with one
 //      V-wide vector store.  A thread finds its first run with one
@@ -51,6 +52,20 @@
 // (st_taps.cuh).  A row or column whose p lies outside (-1, in) has no
 // nonzero weight and yields exactly 0; a NaN coordinate yields NaN, as
 // the dense form does.
+//
+// Non-finite pixels: the dense form multiplies every pixel by a weight,
+// zero ones included, so one NaN or infinity reaches outputs that do not
+// tap it (0 * inf and 0 * NaN are NaN).  The tap form never reads those
+// products.  So each block first reads its whole example (16-byte loads)
+// only to OR a flag: a pixel that is NaN or infinite as the mode rounds
+// it.  A finite example takes the tap path above, whose bits do not
+// change.  A flagged one takes gather_nonfinite, which gives the dense
+// form's pattern of NaN and +-inf: with tmp = W_y . img, tmp[i, l] is NaN
+// where column l holds a NaN, or an infinity in a row to which output row
+// i gives weight 0, and otherwise the sum of its taps' products (+-inf
+// where a tap meets an infinity); an output (i, k) is NaN where tmp[i, .]
+// holds a NaN, or an infinity in a column to which output column k gives
+// weight 0, and otherwise the sum of its taps' products.
 
 #include <cstdint>
 
@@ -60,6 +75,95 @@ namespace {
 
 // Outputs (pixels per example) up to which a block has 64 threads.
 constexpr int kSmallOutput = 512;
+// A column count that marks a column holding a NaN.
+constexpr int kNanColumn = 0x7fffffff;
+
+// tmp[i, l] = (W_y . img)[i, l] of the dense form for row taps ty, given
+// cnt, column l's count of infinities (kNanColumn if it holds a NaN).
+template <bool kBf16>
+__device__ __forceinline__ float dense_row_value(const float* __restrict__ src,
+                                                 const Taps& ty, int cnt,
+                                                 int l, int in_w) {
+  const float nan = __int_as_float(0x7fc00000);
+  if (cnt == kNanColumn) return nan;
+  float acc = 0.0f;
+  int inf_taps = 0;
+  if (ty.w0 != 0.0f) {
+    const float v = rnd<kBf16>(src[ty.q0 * in_w + l]);
+    inf_taps += isinf(v);
+    acc = __fmaf_rn(ty.w0, v, acc);
+  }
+  if (ty.w1 != 0.0f) {
+    const float v = rnd<kBf16>(src[(ty.q0 + 1) * in_w + l]);
+    inf_taps += isinf(v);
+    acc = __fmaf_rn(ty.w1, v, acc);
+  }
+  // an infinity that this row gives weight 0 makes a NaN
+  return cnt > inf_taps ? nan : rnd<kBf16>(acc);
+}
+
+// The gather of an example that holds a NaN or an infinity: the dense
+// form's result (see the header).  Shared memory after the taps: cnt
+// (in_w column counts), then per output row a NaN flag and a count of
+// infinite tmp values.
+template <bool kBf16>
+__device__ __noinline__ void gather_nonfinite(const float* __restrict__ src,
+                                              float* __restrict__ dst,
+                                              const Taps* __restrict__ taps,
+                                              int* __restrict__ cnt, int in_h,
+                                              int in_w, int out_h, int out_w) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  int* __restrict__ row_nan = cnt + in_w;
+  int* __restrict__ row_inf = row_nan + out_h;
+  const float nan = __int_as_float(0x7fc00000);
+  for (int l = tid; l < in_w; l += nthreads) {
+    int c = 0;
+    for (int j = 0; j < in_h; ++j) {
+      const float v = rnd<kBf16>(src[j * in_w + l]);
+      if (v != v) c = kNanColumn;
+      else if (isinf(v) && c != kNanColumn) ++c;
+    }
+    cnt[l] = c;
+  }
+  for (int i = tid; i < out_h; i += nthreads) {
+    row_nan[i] = 0;
+    row_inf[i] = 0;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < out_h * in_w; idx += nthreads) {
+    const int i = idx / in_w, l = idx - i * in_w;
+    if (taps[i].q0 == kNaN) continue;         // its outputs are all NaN
+    const float t = dense_row_value<kBf16>(src, taps[i], cnt[l], l, in_w);
+    if (t != t) {
+      row_nan[i] = 1;
+    } else if (isinf(t)) {
+      atomicAdd(row_inf + i, 1);
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < out_h * out_w; idx += nthreads) {
+    const int i = idx / out_w, k = idx - i * out_w;
+    const Taps ty = taps[i], tx = taps[out_h + k];
+    float res = nan;
+    if (ty.q0 != kNaN && tx.q0 != kNaN && !row_nan[i]) {
+      float col[2] = {0.0f, 0.0f};
+      int inf_taps = 0;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if ((c ? tx.w1 : tx.w0) != 0.0f) {
+          col[c] = dense_row_value<kBf16>(src, ty, cnt[tx.q0 + c],
+                                          tx.q0 + c, in_w);
+          inf_taps += isinf(col[c]);
+        }
+      }
+      // an infinite tmp that this column gives weight 0 makes a NaN
+      if (row_inf[i] == inf_taps) {
+        res = __fmaf_rn(tx.w1, col[1], __fmul_rn(tx.w0, col[0]));
+      }
+    }
+    dst[idx] = res;
+  }
+}
 
 template <int V>
 struct Vec;
@@ -84,7 +188,7 @@ template <bool kBf16, int V, int kThreads>
 __global__ void __launch_bounds__(kThreads)
 st_gather_kernel(const float* __restrict__ img, const float* __restrict__ zw,
                  float* __restrict__ out, int in_h, int in_w, int out_h,
-                 int out_w) {
+                 int out_w, bool vec) {
   extern __shared__ Taps taps[];             // out_h rows, then out_w columns
   const int tid = threadIdx.x;
   const int64_t b = blockIdx.x;
@@ -102,10 +206,16 @@ st_gather_kernel(const float* __restrict__ img, const float* __restrict__ zw,
     taps[r] = axis_taps(p, row ? in_h : in_w, kBf16);
     nan_col |= !row && p != p;
   }
-  const bool any_nan_col = __syncthreads_or(nan_col);
-
   const float* __restrict__ src = img + b * in_h * in_w;
   float* __restrict__ dst = out + b * out_h * out_w;
+  const bool bad = any_nonfinite<kBf16, kThreads>(src, in_h * in_w, vec);
+  const bool any_nan_col = __syncthreads_or(nan_col);
+  if (__syncthreads_or(bad)) {
+    gather_nonfinite<kBf16>(src, dst, taps,
+                            reinterpret_cast<int*>(taps + out_h + out_w),
+                            in_h, in_w, out_h, out_w);
+    return;
+  }
   const float nan = __int_as_float(0x7fc00000);
   const int nvec = out_w / V;                // runs per output row
   const int step_i = kThreads / nvec, step_k = kThreads - step_i * nvec;
@@ -172,14 +282,18 @@ st_gather_kernel(const float* __restrict__ img, const float* __restrict__ zw,
 template <bool kBf16, int V>
 int launch(const float* img, const float* zw, float* out, long long n,
            int in_h, int in_w, int out_h, int out_w, cudaStream_t stream) {
-  const size_t smem = sizeof(Taps) * static_cast<size_t>(out_h + out_w);
+  // the taps, then gather_nonfinite's counts
+  const size_t smem = sizeof(Taps) * static_cast<size_t>(out_h + out_w)
+      + sizeof(int) * static_cast<size_t>(in_w + 2 * out_h);
   const unsigned blocks = static_cast<unsigned>(n);
+  const bool vec = reinterpret_cast<uintptr_t>(img) % 16 == 0
+      && (in_h * in_w) % 4 == 0;
   if (out_h * out_w <= kSmallOutput) {
     st_gather_kernel<kBf16, V, 64><<<blocks, 64, smem, stream>>>(
-        img, zw, out, in_h, in_w, out_h, out_w);
+        img, zw, out, in_h, in_w, out_h, out_w, vec);
   } else {
     st_gather_kernel<kBf16, V, 128><<<blocks, 128, smem, stream>>>(
-        img, zw, out, in_h, in_w, out_h, out_w);
+        img, zw, out, in_h, in_w, out_h, out_w, vec);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,10 +14,12 @@
 // q0 + 1, st_taps.cuh), so this kernel computes the same function in tap
 // form: each output pixel (i, k) touches four input pixels.
 //
-// What bounds it on the card: memory.  It needs the input pixels its taps
-// touch, the cotangent g at the output pixels that have a tap, and zw, and
-// writes g_img and g_zw once; the arithmetic is a few multiply-adds per
-// tap pair, far under the CUDA-core rate.  In practice a block's latency
+// What bounds it on the card: memory.  Its sums need the input pixels its
+// taps touch, the cotangent g at the output pixels that have a tap, and
+// zw, and it writes g_img and g_zw once; the check for non-finite inputs
+// (below) reads all of img and g once.  The arithmetic is a few
+// multiply-adds per tap pair, far under the CUDA-core rate.  In practice
+// a block's latency
 // bounds it: at N = 1024 the grid is one wave, and at N = 8192 a few
 // waves of the same chain (zw, taps, a round trip for g and img, the sums,
 // the writes).  So the designs below shorten that chain and do no work on
@@ -77,11 +79,17 @@
 // dense form gives it: all of g_img; the x gradients for a NaN row
 // coordinate, the y gradients for a NaN column coordinate.
 //
-// Non-finite cotangents: both designs use g only at output pixels that
-// have a tap.  A NaN or infinity there makes all of g_img NaN (the dense
-// products spread it to every entry) and reaches the zw gradients through
-// their sums.  A NaN or infinity at a pixel with no tap reaches neither
-// output, whereas the dense form's products (0 * NaN) spread it into both.
+// Non-finite inputs: the dense form multiplies every entry of img and g
+// by weights, zero ones included, so one NaN or infinity spreads through
+// 0 * inf and 0 * NaN into outputs the taps never reach.  Both designs
+// use img and g only where a tap is live.  So each block first reads its
+// whole img and g (16-byte loads) only to OR a flag: an entry that is NaN
+// or infinite as the mode rounds it.  A finite example takes the designs
+// above, whose bits do not change.  A flagged one takes
+// gather_bwd_nonfinite, which computes the dense form's five products
+// literally on its dense weights (rounded as in bf16 mode), so every
+// output is NaN, +-inf or finite where the dense form's is: slow, and
+// only ever run on a non-finite example.
 
 #include <climits>
 #include <cstdint>
@@ -176,6 +184,153 @@ enum {
   kLim = 10
 };
 
+// The weight and dW/dp of the dense form at tap index j of taps t (NaN
+// weights and zero dW/dp on a NaN coordinate, as the dense form has).
+__device__ __forceinline__ float dense_w(const TapsDp& t, int j) {
+  return t.t.q0 == kNaN ? __int_as_float(0x7fc00000) : weight_at(t.t, j);
+}
+
+__device__ __forceinline__ float dense_dw(const TapsDp& t, int j) {
+  return t.t.q0 == j ? t.d0 : (t.t.q0 + 1 == j ? t.d1 : 0.0f);
+}
+
+// Floats of shared memory gather_bwd_nonfinite needs after the taps: one
+// (out_h x in_w) or (in_h x out_w) product at a time, then each output row
+// and column's two tap terms and a flag.
+__host__ __device__ __forceinline__ int nonfinite_floats(int in_h, int in_w,
+                                                         int out_h,
+                                                         int out_w) {
+  const int a = out_h * in_w, b = in_h * out_w;
+  return (a > b ? a : b) + 3 * (out_h + out_w);
+}
+
+// The backward of an example whose img or g holds a NaN or an infinity:
+// the dense form's five products, literally (see the header), in the
+// block's shared memory buf (nonfinite_floats).  src, g, gimg (null when
+// not asked for) and gzw point at the example's own rows.
+template <bool kBf16>
+__device__ __noinline__ void gather_bwd_nonfinite(
+    const float* __restrict__ src, const float* __restrict__ g,
+    float* __restrict__ gimg, float* __restrict__ gzw,
+    const TapsDp* __restrict__ taps, float* __restrict__ buf, int in_h,
+    int in_w, int out_h, int out_w) {
+  const int tid = threadIdx.x;
+  const TapsDp* __restrict__ ty = taps;
+  const TapsDp* __restrict__ tx = taps + out_h;
+  const int n_buf = nonfinite_floats(in_h, in_w, out_h, out_w)
+      - 3 * (out_h + out_w);
+  float* __restrict__ term_x = buf + n_buf;          // 2 per output column
+  float* __restrict__ term_y = term_x + 2 * out_w;   // 2 per output row
+  int* __restrict__ flag_x = reinterpret_cast<int*>(term_y + 2 * out_h);
+  int* __restrict__ flag_y = flag_x + out_w;
+  const float nan = __int_as_float(0x7fc00000);
+
+  // tmp = W_y . img (out_h x in_w)
+  for (int idx = tid; idx < out_h * in_w; idx += kThreads) {
+    const int i = idx / in_w, l = idx - i * in_w;
+    float acc = 0.0f;
+    for (int j = 0; j < in_h; ++j) {
+      acc = __fmaf_rn(rnd<kBf16>(dense_w(ty[i], j)),
+                      rnd<kBf16>(src[j * in_w + l]), acc);
+    }
+    buf[idx] = acc;
+  }
+  for (int idx = tid; idx < 3 * (out_h + out_w); idx += kThreads) {
+    term_x[idx] = 0.0f;                      // the terms, then the flags
+  }
+  __syncthreads();
+  // gxw[k] = sum_l dwx[k, l] (g^T . tmp)[k, l]: the terms of the two taps,
+  // and a flag where a non-finite product meets dW/dp = 0 elsewhere
+  for (int idx = tid; idx < out_w * in_w; idx += kThreads) {
+    const int k = idx / in_w, l = idx - k * in_w;
+    float acc = 0.0f;
+    for (int i = 0; i < out_h; ++i) {
+      acc = __fmaf_rn(rnd<kBf16>(g[i * out_w + k]),
+                      rnd<kBf16>(buf[i * in_w + l]), acc);
+    }
+    const int q0 = tx[k].t.q0;
+    if (l == q0 || l == q0 + 1) {
+      term_x[2 * k + (l - q0)] = dense_dw(tx[k], l) * acc;
+    } else if (!isfinite(acc)) {
+      flag_x[k] = 1;
+    }
+  }
+  __syncthreads();
+  // gx = img . W_x^T (in_h x out_w)
+  for (int idx = tid; idx < in_h * out_w; idx += kThreads) {
+    const int j = idx / out_w, k = idx - j * out_w;
+    float acc = 0.0f;
+    for (int l = 0; l < in_w; ++l) {
+      acc = __fmaf_rn(rnd<kBf16>(src[j * in_w + l]),
+                      rnd<kBf16>(dense_w(tx[k], l)), acc);
+    }
+    buf[idx] = acc;
+  }
+  __syncthreads();
+  // gy[i] = sum_j dwy[i, j] (g . gx^T)[i, j], as gxw
+  for (int idx = tid; idx < out_h * in_h; idx += kThreads) {
+    const int i = idx / in_h, j = idx - i * in_h;
+    float acc = 0.0f;
+    for (int k = 0; k < out_w; ++k) {
+      acc = __fmaf_rn(rnd<kBf16>(g[i * out_w + k]),
+                      rnd<kBf16>(buf[j * out_w + k]), acc);
+    }
+    const int q0 = ty[i].t.q0;
+    if (j == q0 || j == q0 + 1) {
+      term_y[2 * i + (j - q0)] = dense_dw(ty[i], j) * acc;
+    } else if (!isfinite(acc)) {
+      flag_y[i] = 1;
+    }
+  }
+  __syncthreads();
+  if (tid < 32) {
+    float sx_u = 0.0f, sx = 0.0f, sy_u = 0.0f, sy = 0.0f;
+    for (int k = tid; k < out_w; k += 32) {
+      const float gxw = flag_x[k] ? nan : term_x[2 * k] + term_x[2 * k + 1];
+      sx_u = __fmaf_rn(gxw, tx[k].u, sx_u);
+      sx += gxw;
+    }
+    for (int i = tid; i < out_h; i += 32) {
+      const float gy = flag_y[i] ? nan : term_y[2 * i] + term_y[2 * i + 1];
+      sy_u = __fmaf_rn(gy, ty[i].u, sy_u);
+      sy += gy;
+    }
+    sx_u = warp_sum(sx_u);
+    sx = warp_sum(sx);
+    sy_u = warp_sum(sy_u);
+    sy = warp_sum(sy);
+    if (tid == 0) {
+      const float cy = 0.5f * static_cast<float>(in_h - 1);
+      const float cx = 0.5f * static_cast<float>(in_w - 1);
+      gzw[0] = sx_u * cx;
+      gzw[1] = sy_u * cy;
+      gzw[2] = sx * cx;
+      gzw[3] = sy * cy;
+    }
+  }
+  if (gimg == nullptr) return;
+  // g_img = (W_y^T . g) . W_x: t2 (in_h x out_w), then g_img
+  for (int idx = tid; idx < in_h * out_w; idx += kThreads) {
+    const int j = idx / out_w, k = idx - j * out_w;
+    float acc = 0.0f;
+    for (int i = 0; i < out_h; ++i) {
+      acc = __fmaf_rn(rnd<kBf16>(dense_w(ty[i], j)),
+                      rnd<kBf16>(g[i * out_w + k]), acc);
+    }
+    buf[idx] = acc;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < in_h * in_w; idx += kThreads) {
+    const int j = idx / in_w, l = idx - j * in_w;
+    float acc = 0.0f;
+    for (int k = 0; k < out_w; ++k) {
+      acc = __fmaf_rn(rnd<kBf16>(buf[j * out_w + k]),
+                      rnd<kBf16>(dense_w(tx[k], l)), acc);
+    }
+    gimg[idx] = acc;
+  }
+}
+
 // Dynamic shared memory of one block, in floats after the taps.
 struct Layout {
   int gs, ims, gy, gxp, t2, reach, floats;
@@ -204,7 +359,7 @@ st_gather_bwd_kernel(const float* __restrict__ img,
                      const float* __restrict__ zw,
                      const float* __restrict__ g, float* __restrict__ gimg,
                      float* __restrict__ gzw, int in_h, int in_w, int out_h,
-                     int out_w) {
+                     int out_w, int vec) {
   extern __shared__ float4 smem4[];
   const bool with_img = gimg != nullptr;
   const Layout lay(in_h, in_w, out_h, out_w, with_img);
@@ -232,6 +387,11 @@ st_gather_bwd_kernel(const float* __restrict__ img,
     }
   }
   __syncthreads();
+  const float* __restrict__ src = img + b * in_h * in_w;
+  const float* __restrict__ gg = g + b * out_h * out_w;
+  const bool bad =
+      any_nonfinite<kBf16, kThreads>(src, in_h * in_w, vec & 1) ||
+      any_nonfinite<kBf16, kThreads>(gg, out_h * out_w, vec & 2);
 
   // 1. taps, live intervals, touched input, reach
   bool nan_row = false, nan_col = false;
@@ -291,7 +451,13 @@ st_gather_bwd_kernel(const float* __restrict__ img,
   const bool warp_nan_col = __any_sync(0xffffffffu, nan_col);
   if (lane == 0 && warp_nan_row) lim[kNanRow] = 1;
   if (lane == 0 && warp_nan_col) lim[kNanCol] = 1;
-  __syncthreads();
+  if (__syncthreads_or(bad)) {
+    gather_bwd_nonfinite<kBf16>(src, gg, with_img ? gimg + b * in_h * in_w
+                                                  : nullptr,
+                                gzw + 4 * b, taps, fl, in_h, in_w, out_h,
+                                out_w);
+    return;
+  }
 
   // the live rectangle of g and the touched rectangle of img
   int nr = lim[kRows + 1] - lim[kRows] + 1;
@@ -305,17 +471,13 @@ st_gather_bwd_kernel(const float* __restrict__ img,
 
   // 2. read g and img there, once (rounded to bf16 where they are used)
   if (nr) {
-    copy_block(gs, g + b * out_h * out_w + r_lo * out_w + c_lo, out_w, nr,
-               nc, warp, lane);
-    copy_block(ims, img + b * in_h * in_w + j_lo * in_w + l_lo, in_w, nj,
-               nl, warp, lane);
+    copy_block(gs, gg + r_lo * out_w + c_lo, out_w, nr, nc, warp, lane);
+    copy_block(ims, src + j_lo * in_w + l_lo, in_w, nj, nl, warp, lane);
   }
   __syncthreads();
 
   // 3a. gy per live row (a warp a row), gx partials per warp; a lane
-  //     keeps its two columns' taps and gx sums in registers.  g is
-  //     checked for non-finite values here, where each value read is used.
-  bool bad_g = false;
+  //     keeps its two columns' taps and gx sums in registers.
   for (int k0 = 0; k0 < nc; k0 += 64) {
     Col col[2];
     float gx[2] = {0.0f, 0.0f};
@@ -362,9 +524,7 @@ st_gather_bwd_kernel(const float* __restrict__ img,
               __fmaf_rn(wy[1], v[1][e], __fmul_rn(wy[0], v[0][e])));
           b_sum = __fmaf_rn(dx[e], rp, b_sum);
         }
-        const float graw = gs[ii * nc + k0 + lane + 32 * s];
-        bad_g |= !isfinite(graw);
-        const float gv = rnd<kBf16>(graw);
+        const float gv = rnd<kBf16>(gs[ii * nc + k0 + lane + 32 * s]);
         row_sum += gv * a_sum;
         gx[s] += gv * b_sum;
       }
@@ -391,8 +551,8 @@ st_gather_bwd_kernel(const float* __restrict__ img,
       t2[idx] = rnd<kBf16>(acc);
     }
   }
-  const bool nan_img =
-      __syncthreads_or(bad_g) || any_nan_row || any_nan_col;
+  __syncthreads();
+  const bool nan_img = any_nan_row || any_nan_col;
 
   // 4a. the zw gradients through dp/dscale = u (in - 1) / 2 and
   //     dp/dshift = (in - 1) / 2, by the last warp
@@ -481,7 +641,7 @@ st_gather_bwd_dense_kernel(const float* __restrict__ img,
                            const float* __restrict__ g,
                            float* __restrict__ gimg,
                            float* __restrict__ gzw, int in_h, int in_w,
-                           int out_h, int out_w) {
+                           int out_h, int out_w, int vec) {
   extern __shared__ float smem[];
   const int n_taps = out_h + out_w;
   const int n_out = out_h * out_w;
@@ -491,7 +651,7 @@ st_gather_bwd_dense_kernel(const float* __restrict__ img,
   float* red = gb + n_out;           // gy (out_h), then gx (out_w)
   float* t2 = red + n_taps;          // (in_h, out_w), with g_img only
   float* gi = t2 + in_h * out_w;     // (in_h, in_w), with g_img only
-  __shared__ int nan_row, nan_col, nan_g;
+  __shared__ int nan_row, nan_col;
 
   const int tid = threadIdx.x;
   const int64_t b = blockIdx.x;
@@ -501,7 +661,6 @@ st_gather_bwd_dense_kernel(const float* __restrict__ img,
   if (tid == 0) {
     nan_row = 0;
     nan_col = 0;
-    nan_g = 0;
   }
   if (gimg != nullptr) {
     for (int idx = tid; idx < in_h * (out_w + in_w); idx += kThreads) {
@@ -510,7 +669,10 @@ st_gather_bwd_dense_kernel(const float* __restrict__ img,
   }
   __syncthreads();
 
-  // 1. taps
+  // 1. taps, and the check for non-finite inputs
+  const bool bad =
+      any_nonfinite<kBf16, kThreads>(src, in_h * in_w, vec & 1) ||
+      any_nonfinite<kBf16, kThreads>(gg, n_out, vec & 2);
   for (int r = tid; r < n_taps; r += kThreads) {
     const bool row = r < out_h;
     taps[r] = row ? axis_taps_dp<kBf16>(__ldg(z + 1), __ldg(z + 3), r,
@@ -519,7 +681,13 @@ st_gather_bwd_dense_kernel(const float* __restrict__ img,
                                         out_w, in_w);
     if (taps[r].t.q0 == kNaN) atomicExch(row ? &nan_row : &nan_col, 1);
   }
-  __syncthreads();
+  if (__syncthreads_or(bad)) {
+    gather_bwd_nonfinite<kBf16>(src, gg, gimg == nullptr ? nullptr
+                                         : gimg + b * in_h * in_w,
+                                gzw + 4 * b, taps, ga, in_h, in_w, out_h,
+                                out_w);
+    return;
+  }
 
   // 2. per output pixel: g A and g B; g is read only where the pixel's
   //    row and column are live (a NaN tap is never live)
@@ -531,9 +699,7 @@ st_gather_bwd_dense_kernel(const float* __restrict__ img,
     const bool lx[2] = {live(tx.t.w0, tx.d0), live(tx.t.w1, tx.d1)};
     float gv = 0.0f, a_sum = 0.0f, b_sum = 0.0f;
     if ((ly[0] || ly[1]) && (lx[0] || lx[1])) {
-      const float graw = __ldg(gg + pix);
-      if (!isfinite(graw)) nan_g = 1;
-      gv = rnd<kBf16>(graw);
+      gv = rnd<kBf16>(__ldg(gg + pix));
       float v[2][2];
       for (int a = 0; a < 2; ++a) {
         for (int c = 0; c < 2; ++c) {
@@ -603,7 +769,7 @@ st_gather_bwd_dense_kernel(const float* __restrict__ img,
       }
     }
     __syncthreads();
-    const bool nan = nan_row || nan_col || nan_g;
+    const bool nan = nan_row || nan_col;
     float* __restrict__ dst = gimg + b * in_h * in_w;
     for (int idx = tid; idx < in_h * in_w; idx += kThreads) {
       dst[idx] = nan ? __int_as_float(0x7fc00000) : gi[idx];
@@ -659,11 +825,25 @@ int launch(const float* img, const float* zw, const float* g, float* gimg,
            float* gzw, long long n, int in_h, int in_w, int out_h, int out_w,
            cudaStream_t stream) {
   const bool dense = out_h * out_w <= in_h * in_w;
-  const long long smem = dense
+  const long long taps_bytes = dense
+      ? static_cast<long long>(sizeof(TapsDp)) * (out_h + out_w)
+      : 16LL * taps_float4s(out_h + out_w);
+  long long smem = dense
       ? dense_smem_bytes(in_h, in_w, out_h, out_w, gimg != nullptr)
-      : 16LL * taps_float4s(out_h + out_w)
-            + static_cast<long long>(sizeof(float))
+      : taps_bytes + static_cast<long long>(sizeof(float))
                   * Layout(in_h, in_w, out_h, out_w, gimg != nullptr).floats;
+  // room for gather_bwd_nonfinite, which a block takes for a non-finite
+  // example
+  const long long nonfinite_smem = taps_bytes
+      + static_cast<long long>(sizeof(float))
+            * nonfinite_floats(in_h, in_w, out_h, out_w);
+  if (nonfinite_smem > smem) smem = nonfinite_smem;
+  // bit 0: img, bit 1: g can be scanned 16 bytes a load
+  const bool vec_img =
+      reinterpret_cast<uintptr_t>(img) % 16 == 0 && (in_h * in_w) % 4 == 0;
+  const bool vec_g =
+      reinterpret_cast<uintptr_t>(g) % 16 == 0 && (out_h * out_w) % 4 == 0;
+  const int vec = (vec_img ? 1 : 0) | (vec_g ? 2 : 0);
   const auto kernel = dense ? st_gather_bwd_dense_kernel<kBf16>
                             : st_gather_bwd_kernel<kBf16>;
   if (smem > 48 * 1024) {
@@ -676,7 +856,7 @@ int launch(const float* img, const float* zw, const float* g, float* gimg,
     }
   }
   kernel<<<static_cast<unsigned>(n), kThreads, static_cast<size_t>(smem),
-           stream>>>(img, zw, g, gimg, gzw, in_h, in_w, out_h, out_w);
+           stream>>>(img, zw, g, gimg, gzw, in_h, in_w, out_h, out_w, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

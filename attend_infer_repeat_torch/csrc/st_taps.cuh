@@ -1,5 +1,6 @@
 // Row and column taps of the separable bilinear spatial transformer,
-// shared by the gather (st_gather.cu) and its backward (st_gather_bwd.cu).
+// shared by the gather (st_gather.cu) and its backward (st_gather_bwd.cu),
+// and the scan both make for non-finite inputs.
 //
 // An output row (or column) k samples the input axis at
 // p = ((scale * u + shift) + 1) * (in - 1) / 2, u = 2k / (out - 1) - 1.
@@ -28,6 +29,36 @@ __device__ __forceinline__ float round_bf16(float x) {
 template <bool kBf16>
 __device__ __forceinline__ float rnd(float x) {
   return kBf16 ? round_bf16(x) : x;
+}
+
+// Whether x, rounded as the mode rounds it, is NaN or infinite.
+template <bool kBf16>
+__device__ __forceinline__ bool nonfinite(float x) {
+  return !isfinite(rnd<kBf16>(x));
+}
+
+// Whether any of the n floats at p is non-finite in the mode.  Each of
+// the block's kThreads threads reads a strided share, 16 bytes a load
+// where vec says p is 16-byte aligned and n a multiple of 4.
+template <bool kBf16, int kThreads>
+__device__ __forceinline__ bool any_nonfinite(const float* __restrict__ p,
+                                              int n, bool vec) {
+  bool bad = false;
+  if (vec) {
+    const float4* __restrict__ p4 = reinterpret_cast<const float4*>(p);
+#pragma unroll 4
+    for (int q = threadIdx.x; q < n / 4; q += kThreads) {
+      const float4 v = __ldg(p4 + q);
+      bad |= nonfinite<kBf16>(v.x) | nonfinite<kBf16>(v.y) |
+             nonfinite<kBf16>(v.z) | nonfinite<kBf16>(v.w);
+    }
+  } else {
+#pragma unroll 4
+    for (int q = threadIdx.x; q < n; q += kThreads) {
+      bad |= nonfinite<kBf16>(__ldg(p + q));
+    }
+  }
+  return bad;
 }
 
 // Normalized coordinate u = 2k / (out - 1) - 1 of output index k.

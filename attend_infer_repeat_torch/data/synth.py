@@ -26,6 +26,7 @@ import torch
 from attend_infer_repeat_torch import resolve_device
 from attend_infer_repeat_torch.configs import DataConfig
 from attend_infer_repeat_torch.ops.spatial_transformer import st_paste
+from attend_infer_repeat_torch.utils import graphs
 
 
 def _grid_size(t_slots: int) -> int:
@@ -162,12 +163,24 @@ def _uniform_positions(candidates, sx, sy, cfg: DataConfig):
 
 
 def make_synth_fn(cfg: DataConfig, digit_bank, device=None):
-    """``(batch, generator=None) → (imgs, nums)`` with the bank on ``device``."""
+    """``(batch, generator=None) → (imgs, nums)``, the bank on ``device``.
+
+    On CUDA one graph per batch synthesizes from the draws
+    (``sample_draws``) taken from ``generator`` before the replay, as the
+    eager call takes them; eager on the CPU and inside
+    ``utils.debug_mode``.
+    """
     bank = torch.as_tensor(digit_bank, dtype=torch.float32).to(
         resolve_device(device))
+    cache = graphs.GraphCache(lambda bank, draws: synthesize_batch(
+        bank, cfg, draws["nums"].shape[0], draws=draws))
 
     @torch.inference_mode()
     def synth(batch: int, generator: Optional[torch.Generator] = None):
-        return synthesize_batch(bank, cfg, batch, generator)
+        if graphs.eager(bank.device):
+            return synthesize_batch(bank, cfg, batch, generator)
+        return cache(bank, sample_draws(cfg, batch, bank.shape[0], generator,
+                                        bank.device))
 
+    synth.graphs = cache
     return synth

@@ -19,6 +19,7 @@ from attend_infer_repeat_torch.models.estimator import (
     log_importance_weights,
 )
 from attend_infer_repeat_torch.train.state import prior_success_prob
+from attend_infer_repeat_torch.utils import graphs
 
 
 def make_iwae_eval_step(config: Config, model, n_particles: int = 5
@@ -30,32 +31,50 @@ def make_iwae_eval_step(config: Config, model, n_particles: int = 5
     ELBO mean (the training metric), the k-particle IWAE bound and
     ``iwae_gap``, their difference.  ``noise`` injects one ``Noise`` per
     particle; otherwise the k·B draws come from ``generator``.
+
+    On CUDA the wide forward is a CUDA graph, one per batch shape, with
+    the draws taken from ``generator`` before the replay (as the eager
+    forward takes them) and the prior's success probability a device
+    input; eager on the CPU and inside ``utils.debug_mode``.
     """
     k = n_particles
+
+    def bound(params, imgs, p_success, generator=None, noise=None):
+        batch = imgs.shape[0]
+        out = torch.func.functional_call(
+            model, params, (imgs.repeat(k, 1, 1), p_success),
+            {"generator": generator, "noise": noise})
+        log_w = log_importance_weights(
+            out, config.model, p_success,
+            where_prior=model.where_prior()).reshape(k, batch)
+        elbos = out.elbo.reshape(k, batch)
+        iw = iwae_bound(log_w, dim=0)                        # (B,)
+        return {
+            "iwae_bound": torch.mean(iw),
+            "elbo": torch.mean(elbos),
+            "log_w_mean": torch.mean(log_w),
+            "iwae_gap": torch.mean(iw) - torch.mean(elbos),
+        }
+
+    cache = graphs.GraphCache(bound)
 
     @torch.no_grad()
     def eval_fn(state, imgs, generator: Optional[torch.Generator] = None,
                 noise: Optional[Sequence] = None):
         p_success = prior_success_prob(config.prior, state.step)
-        imgs = torch.as_tensor(imgs).to(model.device)
-        batch = imgs.shape[0]
+        params = dict(state.model.named_parameters())
+        imgs = torch.as_tensor(imgs)
         if noise is not None:
             # particle j is rows j·B .. (j+1)·B − 1 of the wide batch
             noise = tuple(torch.cat(parts, dim=1) for parts in zip(*noise))
-        out = torch.func.functional_call(
-            model, dict(state.model.named_parameters()),
-            (imgs.repeat(k, 1, 1), p_success),
-            {"generator": generator, "noise": noise})
-        log_w = log_importance_weights(out, config.model,
-                                       p_success).reshape(k, batch)
-        elbos = out.elbo.reshape(k, batch)
-        bound = iwae_bound(log_w, dim=0)                     # (B,)
-        return {
-            "iwae_bound": torch.mean(bound),
-            "elbo": torch.mean(elbos),
-            "log_w_mean": torch.mean(log_w),
-            "iwae_gap": torch.mean(bound) - torch.mean(elbos),
-            "n_particles": torch.tensor(float(k)),
-        }
+        if graphs.eager(model.device):
+            out = bound(params, imgs.to(model.device), p_success, generator,
+                        noise)
+        else:
+            if noise is None:
+                noise = model.sample_noise(k * imgs.shape[0], generator)
+            out = cache(params, imgs, p_success, None, noise)
+        return dict(out, n_particles=torch.tensor(float(k)))
 
+    eval_fn.graphs = cache
     return eval_fn

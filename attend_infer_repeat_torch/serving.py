@@ -2,10 +2,16 @@
 
 The functions returned here run under ``torch.inference_mode()`` on the
 model's device and return the same keys and batch-major shapes as the
-JAX package's serving functions.  With a ``mesh``
-(``parallel.make_mesh``) each rank runs its rows of the batch, with the
-noise drawn for the whole batch as one device would draw it, and every
-rank gets the whole result: it equals the single-device call.
+JAX package's serving functions.  On CUDA each is a CUDA graph
+(``utils.graphs``), the counterpart of the JAX package's jitted
+function: captured at the first call of each batch (or tile) shape and
+replayed a call, with the noise drawn from the caller's generator before
+the replay, as the eager call draws it, so the results, and the
+generator's state after the call, equal the eager call's.  They run
+eagerly on the CPU and inside ``utils.debug_mode``.  With a ``mesh``
+(``parallel.make_mesh``) each rank runs its rows of the batch eagerly,
+with the noise drawn for the whole batch as one device would draw it,
+and every rank gets the whole result: it equals the single-device call.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import torch
 
 from attend_infer_repeat_torch.configs import Config
 from attend_infer_repeat_torch.models.air import AIRModel, Noise
+from attend_infer_repeat_torch.utils import graphs
 
 
 def _chunk_generators(generator: torch.Generator | None, n: int,
@@ -37,13 +44,17 @@ def make_infer_fn(config: Config, model: AIRModel,
     ``tile`` runs a wider batch in chunks of ``tile`` (which must divide
     it), each with its own generator stream; injected ``noise`` (the
     forward's ``(T, B, ...)`` tensors for the whole batch) is sliced along
-    the batch instead.  ``None`` runs the batch in one pass.  With a
-    ``mesh`` each rank runs its rows in one pass.
+    the batch instead.  ``None`` runs the batch in one pass.  On CUDA a
+    tiled batch replays one graph of the tile's shape once per chunk, as
+    ``lax.scan`` runs one program per chunk, so that memory stays at one
+    tile's.  With a ``mesh`` each rank runs its rows in one pass.
     """
     p_success = config.prior.final_success_prob
+    p_device = torch.tensor(p_success, dtype=torch.float32,
+                            device=model.device)
 
-    def _one(imgs, generator, noise):
-        out = model(imgs, p_success, generator=generator, noise=noise)
+    def _one(imgs, generator, noise, p=p_success):
+        out = model(imgs, p, generator=generator, noise=noise)
         return {
             "canvas": out.canvas,
             "elbo": out.elbo,
@@ -59,6 +70,9 @@ def make_infer_fn(config: Config, model: AIRModel,
             "mode_steps": out.mode_steps,
         }
 
+    cache = graphs.GraphCache(
+        lambda held, imgs, noise, p: _one(imgs, None, noise, p))
+
     def draw(batch, generator):
         """The forward's noise for ``batch``: one stream, or one per tile."""
         if tile is None or batch <= tile:
@@ -70,27 +84,37 @@ def make_infer_fn(config: Config, model: AIRModel,
     @torch.inference_mode()
     def infer(imgs: torch.Tensor, generator: torch.Generator | None = None,
               noise: Noise | None = None) -> Dict[str, torch.Tensor]:
-        imgs = imgs.to(model.device)
         batch = imgs.shape[0]
         tiled = tile is not None and batch > tile
         if tiled and batch % tile:
             raise ValueError(f"batch {batch} not divisible by tile {tile}")
-        if mesh is None and not tiled:
-            return _one(imgs, generator, noise)
+        eager = mesh is not None or graphs.eager(model.device)
+        if eager and mesh is None and not tiled:
+            return _one(imgs.to(model.device), generator, noise)
         if noise is None:
             noise = draw(batch, generator)
         if mesh is not None:
             from attend_infer_repeat_torch.parallel.sharding import (
                 constrain_batch, gather_batch)
-            out = _one(constrain_batch(imgs, mesh), None,
+            out = _one(constrain_batch(imgs.to(model.device), mesh), None,
                        tuple(constrain_batch(a, mesh, dim=1) for a in noise))
             return {k: gather_batch(v, mesh) for k, v in out.items()}
-        outs = []
+        if not tiled:
+            return cache(model, imgs, tuple(noise), p_device)
+        imgs = imgs.to(model.device)
+        outs = {}
         for c in range(batch // tile):
             sl = slice(c * tile, (c + 1) * tile)
-            outs.append(_one(imgs[sl], None, tuple(a[:, sl] for a in noise)))
-        return {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}
+            chunk = imgs[sl], tuple(a[:, sl] for a in noise)
+            out = (_one(chunk[0], None, chunk[1]) if eager
+                   else cache.replay(model, *chunk, p_device))
+            for k, v in out.items():
+                if k not in outs:
+                    outs[k] = v.new_empty((batch,) + tuple(v.shape[1:]))
+                outs[k][sl] = v
+        return outs
 
+    infer.graphs = cache
     return infer
 
 
@@ -103,23 +127,30 @@ def make_generate_fn(config: Config, model: AIRModel,
     from.  The default (``None`` → 1.0, uniform over 0..max_steps) matches
     the data's uniform count distribution; the trained model's annealed
     prior (``config.prior.final_success_prob``) puts almost all mass on
-    empty scenes, so callers opt into it explicitly.  With a ``mesh`` each
-    rank draws the whole batch's noise and renders its rows.
+    empty scenes, so callers opt into it explicitly.  On CUDA one graph
+    per batch renders the scenes from noise drawn before the replay.  With
+    a ``mesh`` each rank draws the whole batch's noise and renders its
+    rows.
     """
     p_success = 1.0 if success_prob is None else success_prob
+    cache = graphs.GraphCache(lambda held, noise: model.generate(
+        noise[0].shape[0], p_success, noise=noise))
 
     @torch.inference_mode()
     def generate(batch: int, generator: torch.Generator | None = None,
                  noise=None) -> torch.Tensor:
-        if mesh is None:
+        if mesh is None and graphs.eager(model.device):
             return model.generate(batch, p_success, generator=generator,
                                   noise=noise)
-        from attend_infer_repeat_torch.parallel.sharding import (
-            constrain_batch, gather_batch)
         if noise is None:
             noise = model.generate_noise(batch, p_success, generator)
+        if mesh is None:
+            return cache(model, tuple(noise))
+        from attend_infer_repeat_torch.parallel.sharding import (
+            constrain_batch, gather_batch)
         rows = tuple(constrain_batch(a, mesh) for a in noise)
         return gather_batch(model.generate(rows[0].shape[0], p_success,
                                            noise=rows), mesh)
 
+    generate.graphs = cache
     return generate

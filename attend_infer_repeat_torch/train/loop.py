@@ -77,7 +77,10 @@ def train(config: Config | str, workdir: str = "runs/default",
     With ``data_path`` (a reference-format ``{'imgs', 'nums'}`` pickle)
     the dataset is by default moved to the device once and each step
     draws its minibatch there; ``resident_data=False`` streams batches
-    from the host instead.  ``eval_data_path`` holds the validation
+    from the host instead, from an iterator seeded once with ``seed +
+    step`` at the start (after a restore): a basin restart does not
+    re-seed it, as the JAX loop does not, so a restarted or replayed
+    attempt sees the stream where the failed attempt left it.  ``eval_data_path`` holds the validation
     pickle; without it the training pickle is split 90/10, so that
     ``eval`` rows are always held-out data.  Without ``data_path``
     canvases are synthesized on the device.
@@ -105,7 +108,8 @@ def train(config: Config | str, workdir: str = "runs/default",
         train_bank = None
         # resident: the whole dataset on the device, minibatches drawn
         # there; streamed: the iterator is made after the restore, seeded
-        # off the resumed step
+        # off the resumed step, and (as in the JAX loop) not re-seeded at
+        # a basin restart
         stream_data = not resident_data
         device_data = None if stream_data else (
             torch.from_numpy(train_ds.imgs).to(dev),
@@ -249,7 +253,11 @@ def train(config: Config | str, workdir: str = "runs/default",
     phase_steps = {}
 
     def steps_for(step_no):
-        """The active phase's steps (built lazily, cached per phase)."""
+        """The active phase's steps (built lazily, cached for the phase).
+
+        The phase only moves forward (a restart clears the cache), so the
+        steps of the phase left behind, and their CUDA graphs, are
+        released."""
         capped = step_no >= cap_from
         if capped not in phase_steps:
             mcfg = config.model if capped else dataclasses.replace(
@@ -257,6 +265,7 @@ def train(config: Config | str, workdir: str = "runs/default",
             if not capped:
                 print(f"two-phase max_scale: cap {config.model.max_scale} "
                       f"OFF until step {cap_from}", flush=True)
+            phase_steps.clear()
             phase_steps[capped] = build_steps(mcfg)
         return phase_steps[capped]
 
@@ -407,10 +416,12 @@ def train(config: Config | str, workdir: str = "runs/default",
                                    "trigger_tv": tv,
                                    "best": basin_best,
                                    "replay": replay_now}, f)
+                    # the host-streamed iterator goes on where it was,
+                    # as in the JAX loop: it is not re-seeded
                     state = create_train_state(config, seed=new_seed,
                                                device=dev)
                     base_model = state.model
-                    phase_steps.clear()
+                    phase_steps.clear()       # and the old steps' graphs
                     if ckpt is not None:
                         ckpt = CheckpointManager(
                             os.path.join(workdir, "ckpt"), fresh=True)

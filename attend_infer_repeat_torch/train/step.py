@@ -25,9 +25,12 @@ both generators live on the model's device.  A step is thus a function of
 ``(state, step)`` alone, as ``fold_in(base_key, step)`` makes it in JAX.
 ``cfg.remat`` is the cell's business (``models/cell.py``).
 
-``make_train_step`` runs eagerly (one step a call, and the host-streamed
-path).  ``make_scan_train_step`` is the counterpart of ``jit(lax.scan)``:
-on CUDA, K steps are one captured step replayed K times.
+On CUDA both are CUDA graphs (``utils.graphs``), the counterparts of the
+JAX package's jitted programs: ``make_train_step`` replays one captured
+step a call (one graph per data source: on-device data, a caller's
+batch, injected noise), ``make_scan_train_step`` (``jit(lax.scan)``) one
+captured step K times a call.  ``make_eval_step`` replays one captured
+forward a call, with the annealed prior a device input.
 
 With a ``mesh`` (``parallel.make_mesh``) both keep the GSPMD meaning of
 the JAX package: the result equals the single-device step.  Every rank
@@ -38,9 +41,7 @@ ranks before the update.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import warnings
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -64,6 +65,7 @@ from attend_infer_repeat_torch.train.state import (
     param_group,
     prior_success_prob,
 )
+from attend_infer_repeat_torch.utils import graphs
 
 # the entries of a schedule row (``step_schedule``)
 SCHEDULE = ("prior_success_prob", "kl_beta") + tuple(f"lr/{g}"
@@ -334,11 +336,39 @@ def make_train_step(config: Config, model: AIRModel, digit_bank=None,
     The step updates ``state`` in place (parameters, optimizer state,
     ``step + 1``) and returns it, with a dict of 0-d metric tensors: the
     loss, the surrogate's metrics, count accuracies, ``grad_norm`` (before
-    clipping) and ``prior_success_prob``.  It runs eagerly, one step a
-    call; ``make_scan_train_step`` runs K steps as a CUDA graph.
+    clipping) and ``prior_success_prob``.
+
+    On CUDA the step is captured as a CUDA graph at its first call (one
+    graph per data source: on-device data, a ``batch``, injected
+    ``noise``, each of one shape; ``StepGraph`` with K = 1) and replayed
+    once a call, with a given batch and noise copied into the graph's
+    buffers (a host batch from pinned memory).  The results equal the
+    eager step's.  The graph holds the addresses of the parameters and of
+    ``state.opt_state``'s tensors: a state whose tensors are not those
+    raises.  Runs eagerly on the CPU, inside ``utils.debug_mode`` and with
+    a ``mesh``.
     """
-    return _TrainStep(config, model, digit_bank, device_data,
-                      _global_batch(mesh)).eager
+    dp = _global_batch(mesh)
+    ts = _TrainStep(config, model, digit_bank, device_data, dp)
+    if dp is not None:
+        return ts.eager
+    cache = {}
+
+    def step(state: TrainState, batch=None, noise=None):
+        if graphs.eager(ts.device):
+            return ts.eager(state, batch, noise)
+        ts.check(state)
+        if batch is not None:
+            batch = tuple(torch.as_tensor(t) for t in batch)
+        key = graphs.signature((batch, noise))
+        graph = cache.get(key)
+        if graph is None:
+            graph = cache[key] = StepGraph(ts, state, 1, batch, noise)
+        state, rows = graph.replay(state, batch, noise)
+        return state, {k: v[0] for k, v in rows.items()}
+
+    step.graphs = cache
+    return step
 
 
 def make_scan_train_step(config: Config, model: AIRModel, digit_bank,
@@ -373,9 +403,7 @@ def make_scan_train_step(config: Config, model: AIRModel, digit_bank,
 
     def scan(state: TrainState):
         nonlocal graphed
-        from attend_infer_repeat_torch.utils import debug
-
-        if ts.device.type == "cpu" or dp is not None or debug.active():
+        if dp is not None or graphs.eager(ts.device):
             rows = []
             for _ in range(k_steps):
                 state, m = ts.eager(state)
@@ -390,131 +418,82 @@ def make_scan_train_step(config: Config, model: AIRModel, digit_bank,
     return scan
 
 
-@contextlib.contextmanager
-def _no_host_sync():
-    """Raise at any operation that waits for the card (a capture cannot
-    wait), naming the forward operation behind a backward one."""
-    prev = torch.cuda.get_sync_debug_mode()
-    with warnings.catch_warnings():        # "a prototype feature"
-        warnings.simplefilter("ignore", UserWarning)
-        torch.cuda.set_sync_debug_mode("error")
-    try:
-        with torch.autograd.set_detect_anomaly(True, check_nan=False):
-            yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
-
-
 class StepGraph:
-    """One train step captured as a CUDA graph, replayed K times a call.
+    """One train step captured as a CUDA graph (``utils.graphs.Graph``),
+    replayed K times a call.
 
     Static inputs, written before the replays of a call: the K schedule
     rows (one asynchronous copy from pinned memory) and a row index the
-    graph reads and increments; the generators, registered with the graph
-    and re-seeded before each replay.  The graph writes each step's
-    metrics into row ``i`` of a ``(K, n_metrics)`` buffer.
-
-    Capture runs the step's Python once and executes nothing, so the
-    kernel wrappers' launch counts tick at capture: they are put back,
-    and each replay adds the launches of one captured step.
+    graph reads and increments; a given batch and injected noise
+    (``batch``, ``noise``: their static copies); the generators,
+    registered with the graph and re-seeded before each replay.  The
+    graph writes each step's metrics into row ``i`` of a
+    ``(K, n_metrics)`` buffer.  The warm-up steps run on the state's own
+    tensors, which are put back after.
     """
 
-    WARMUP = 3
-
-    def __init__(self, ts: _TrainStep, state: TrainState, k_steps: int):
+    def __init__(self, ts: _TrainStep, state: TrainState, k_steps: int,
+                 batch=None, noise=None):
         self.ts, self.k = ts, k_steps
         dev = ts.device
         self.tensors = ts.state_tensors(state)
+        self.held = graphs.addresses(self.tensors)
         self.table = torch.zeros((k_steps, len(SCHEDULE)), device=dev)
         self.row = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.table.copy_(ts.schedule(state).expand(k_steps, -1))
-        capture = None
-        if dev.type == "cuda":
-            self.graph = torch.cuda.CUDAGraph()
-            # the side stream torch.cuda.graph shares across the process:
-            # warming up there too keeps one cuBLAS workspace for all graphs
-            capture = torch.cuda.graph(self.graph)
-        self._warm_up(state, None if capture is None
-                      else capture.capture_stream)
-        self.per_replay = self._capture(state, capture)
+        self.inputs = graphs.static_like((batch, noise), dev)
+        self.keys, self.out = None, None
 
-    def _warm_up(self, state: TrainState, stream) -> None:
-        """A few steps on the capture's side stream, on the state's own
-        tensors, which are put back after: they load the kernels, make
-        the cuBLAS and autograd workspaces and run every host-side
-        first-use call (a kernel's shared-memory opt-in) before capture."""
-        ts, dev = self.ts, self.ts.device
-        # no_grad: a clone tracked by autograd would make the parameters'
-        # AccumulateGrad nodes on this stream, which capture may not sync
-        with torch.no_grad():
-            saved = [t.clone() for t in self.tensors]
-        if stream is not None:
-            stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            for i in range(self.WARMUP):
-                ts.seed(state, i)
-                if i == 0:
-                    self.keys = list(ts.run(self.table[0], state.opt_state))
-                    self.out = torch.zeros((self.k, len(self.keys)),
-                                           device=dev)
-                elif i < self.WARMUP - 1 or stream is None:
-                    self._body(state)
-                else:
-                    with _no_host_sync():
-                        self._body(state)
-        if stream is not None:
-            torch.cuda.current_stream(dev).wait_stream(stream)
-        with torch.no_grad():
-            for t, s in zip(self.tensors, saved):
-                t.copy_(s)
+        def prepare(i):
+            ts.seed(state, i)
+            self.row.zero_()
 
-    def _capture(self, state: TrainState, capture):
-        """Capture the step; returns the kernel launches of one replay."""
-        from attend_infer_repeat_torch.ops import st_kernel
-
-        for g in self.ts.gens:
-            self.graph.register_generator_state(g)
-        counts = st_kernel.launches, st_kernel.bwd_launches
-        with capture:
-            self._body(state)
-        per_replay = (st_kernel.launches - counts[0],
-                      st_kernel.bwd_launches - counts[1])
-        st_kernel.launches, st_kernel.bwd_launches = counts
-        return per_replay
-
-    def _launch(self) -> None:
-        self.graph.replay()
+        self.graph = graphs.Graph(lambda: self._body(state), dev,
+                                  state=[*self.tensors, self.row],
+                                  generators=ts.gens, prepare=prepare)
 
     def _body(self, state: TrainState) -> None:
         sched = torch.index_select(self.table, 0, self.row)[0]
-        metrics = self.ts.run(sched, state.opt_state)
-        if list(metrics) != self.keys:
+        metrics = self.ts.run(sched, state.opt_state, *self.inputs)
+        if self.keys is None:               # the first warm-up step
+            self.keys = list(metrics)
+            self.out = torch.zeros((self.k, len(self.keys)),
+                                   device=self.ts.device)
+        elif list(metrics) != self.keys:
             raise RuntimeError(f"the step's metrics changed: {list(metrics)}")
         self.out.index_copy_(0, self.row, torch.stack(
             list(metrics.values()))[None])
         self.row.add_(1)
 
-    def replay(self, state: TrainState):
-        """K steps from ``state``; advances it and returns the metric rows."""
-        from attend_infer_repeat_torch.ops import st_kernel
-
+    def replay(self, state: TrainState, batch=None, noise=None):
+        """K steps from ``state`` (on ``batch`` and ``noise``, as given
+        at capture); advances it and returns the metric rows."""
         ts = self.ts
-        now = ts.state_tensors(state)
-        if len(now) != len(self.tensors) or any(
-                a is not b for a, b in zip(now, self.tensors)):
-            raise ValueError("the state's tensors are not the ones the graph "
-                             "was captured with (restore in place)")
+        graphs.check_held(self.held, ts.state_tensors(state),
+                          "state's tensors")
+        graphs.fill(self.inputs, (batch, noise))
         rows = torch.stack([ts.schedule(state, i) for i in range(self.k)])
         self.table.copy_(to_device(rows, ts.device))
         self.row.zero_()
         for i in range(self.k):
             ts.seed(state, i)
-            self._launch()
-        st_kernel.launches += self.k * self.per_replay[0]
-        st_kernel.bwd_launches += self.k * self.per_replay[1]
+            self.graph.launch()
         ts.advance(state, self.k)
         out = self.out.clone()
         return state, {k: out[:, j] for j, k in enumerate(self.keys)}
+
+
+def _eval_forward(eval_model: AIRModel, params, imgs, nums, p_success,
+                  generator=None, noise=None):
+    """The eval step's device part: ``(metrics, outputs)``."""
+    outputs = torch.func.functional_call(
+        eval_model, params, (imgs, p_success),
+        {"generator": generator, "noise": noise})
+    _, metrics = surrogate_loss(outputs)
+    metrics["count_accuracy"] = count_accuracy(outputs, nums)
+    metrics["count_accuracy_mode"] = count_accuracy(outputs, nums,
+                                                    use_mode=True)
+    return metrics, outputs
 
 
 def make_eval_step(config: Config, model: AIRModel) -> Callable:
@@ -524,23 +503,34 @@ def make_eval_step(config: Config, model: AIRModel) -> Callable:
     Runs the parameters of ``state.model`` in a model built from
     ``model``'s own config with ``explore_eps=None`` (the explore floor is
     a training device); the step index only selects the annealed prior.
+
+    On CUDA the forward is a CUDA graph, one per batch shape, captured at
+    the first call and replayed a call: the noise is drawn from
+    ``generator`` before the replay, as the eager forward draws it, and
+    the prior's success probability is a device input.  The results equal
+    the eager call's, and are copies that a later call leaves alone.  The
+    graph holds the addresses of ``state.model``'s parameters: a state
+    whose parameters are not those raises.  Eager on the CPU and inside
+    ``utils.debug_mode``.
     """
     eval_model = model.with_config(
         dataclasses.replace(model.cfg, explore_eps=None))
+    cache = graphs.GraphCache(
+        lambda params, *inputs: _eval_forward(eval_model, params, *inputs))
 
     @torch.no_grad()
     def eval_fn(state: TrainState, imgs, nums,
                 generator: Optional[torch.Generator] = None, noise=None):
+        dev = eval_model.device
         p_success = prior_success_prob(config.prior, state.step)
-        outputs = torch.func.functional_call(
-            eval_model, dict(state.model.named_parameters()),
-            (imgs.to(eval_model.device), p_success),
-            {"generator": generator, "noise": noise})
-        _, metrics = surrogate_loss(outputs)
-        nums = torch.as_tensor(nums).to(eval_model.device)
-        metrics["count_accuracy"] = count_accuracy(outputs, nums)
-        metrics["count_accuracy_mode"] = count_accuracy(outputs, nums,
-                                                        use_mode=True)
-        return metrics, outputs
+        params = dict(state.model.named_parameters())
+        nums = torch.as_tensor(nums)
+        if graphs.eager(dev):
+            return _eval_forward(eval_model, params, imgs.to(dev),
+                                 nums.to(dev), p_success, generator, noise)
+        if noise is None:
+            noise = eval_model.sample_noise(imgs.shape[0], generator)
+        return cache(params, imgs, nums, p_success, None, tuple(noise))
 
+    eval_fn.graphs = cache
     return eval_fn

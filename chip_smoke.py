@@ -23,16 +23,20 @@ Phases, in order (any failure raises and exits non-zero):
    where it has a tap (``gather_bwd_work``);
 4. the serving slice: canvas synthesis, serving requests through
    ``make_infer_fn`` for the ``serving`` preset and the ``canonical_fast``
-   model, ``make_generate_fn``; launch counts read around that run; one
-   request rerun through the plain spatial transformer and compared;
+   model, ``make_generate_fn``, all through their CUDA graphs; launch
+   counts read around that run (a graph's first call adds its warm-up
+   runs); one request rerun eagerly through the plain spatial
+   transformer and compared;
 5. the train step: ``canonical_fast`` at batch 1024 through
-   ``create_train_state`` and ``make_train_step`` (warm-up, then timed
-   steps), then one ``make_eval_step``; launch counts read around that
-   run (per step: 1 synthesis paste, 6 forward, 6 backward launches; the
+   ``create_train_state`` and ``make_train_step``, eagerly
+   (``utils.debug_mode``; warm-up, then timed steps) and through the
+   step's CUDA graph from the same state, held bit-equal and both timed,
+   then one eager ``make_eval_step``; launch counts read around that run
+   (per step: 1 synthesis paste, 6 forward, 6 backward launches; the
    preset's remat ``save_st`` recomputes no kernel);
-5b. one more step with every kernel call's inputs recorded; each kernel
-   against plain and timed on the windows, images and cotangents that the
-   step really gives it (after the counts were read);
+5b. one more eager step with every kernel call's inputs recorded; each
+   kernel against plain and timed on the windows, images and cotangents
+   that the step really gives it (after the counts were read);
 5c. the K-step chunk as a replayed CUDA graph (``make_scan_train_step``):
    for K = 4 and the preset's 100, the graphed chunk and the same K steps
    run eagerly (``utils.debug_mode``) from one state must agree bit for
@@ -42,6 +46,13 @@ Phases, in order (any failure raises and exits non-zero):
    launches of one captured step); then step wall and train img/s,
    eager and graphed, with the preset's remat ``save_st`` and with remat
    off;
+5d. the JAX package's other jitted entry points as CUDA graphs against
+   their eager calls at full width, from one generator state: infer
+   (``serving`` and the ``canonical_fast`` model) and generate at batch
+   8192, tiled infer at 16384 (tile 8192), synthesis, eval and IWAE at
+   1024, the single train step on an external host batch; results
+   bit-equal, generators left in one state, both walls and each graph's
+   memory pool printed; launch counts read around that run;
 6. one step's loss and gradients through the kernels and through the
    plain spatial transformer, for ``canonical`` and ``canonical_fast``;
 7. the training loop: ``train()`` on ``canonical_fast`` at batch 1024 to
@@ -54,22 +65,24 @@ Phases, in order (any failure raises and exits non-zero):
    for 2 steps;
 7b. data parallelism on a one-rank NCCL mesh (``parallel.make_mesh``):
    the mesh step and the external-batch shard-map step against the plain
-   step from the same state, and a per-rank shard-map step;
+   step (eager) from the same state, and a per-rank shard-map step;
 7c. ``utils.trace`` around a graphed chunk writes a trace that holds the
    replayed kernels, and ``utils.debug_mode`` traps a NaN injected into
    a train step's batch;
 8. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Phases 3 and 3b include the ``crowded`` preset's 100×100 canvas.  The
-``kernels`` line counts every launch of the main paths (phases 4, 5, 5c,
-7 and 7b): eager launches, and for a replayed graph the launches of one
-captured step times its replays.  Imports nothing of JAX.  Needs one card; stops no process it did not start (it
+Phases 3 and 3b include the ``crowded`` preset's 100×100 canvas, and a
+NaN and an infinity in the image and the cotangent against the plain
+versions' pattern.  The ``kernels`` line counts every launch of the main
+paths (phases 4, 5, 5c, 5d, 7 and 7b): eager launches, and for a
+replayed graph the launches of one captured run times its replays.  Imports nothing of JAX.  Needs one card; stops no process it did not start (it
 starts ``nvidia-smi``, ``nvcc`` and the CLI run, and waits for each).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -225,14 +238,6 @@ def grid_sample_gather(img, zw, out_shape):
                          padding_mode="zeros", align_corners=True)[:, 0]
 
 
-def sectors(mask) -> int:
-    """32-byte sectors (8 floats) of a contiguous float32 tensor shaped as
-    ``mask`` that hold at least one pixel where ``mask`` is set."""
-    flat = mask.flatten()
-    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 8)])
-    return flat.view(-1, 8).any(1).sum().item()
-
-
 def tap_support(zw, in_shape, out_shape):
     """The gather's nonzero taps on these ``zw``: the input pixels they
     touch (rows that some output row's taps reach, crossed with columns
@@ -252,14 +257,16 @@ def tap_support(zw, in_shape, out_shape):
 def gather_work(zw, in_shape, out_shape):
     """Bytes and FLOP that this gather needs on these ``zw``.
 
-    The kernel reads only the input pixels its nonzero taps touch.  Bytes
-    count the 32-byte sectors that hold those pixels, plus ``zw`` read and
-    the output written once; FLOP count one multiply-add per nonzero tap
-    pair.  Also returns the touched share of the input.
+    Bytes: the whole input read once (a NaN or an infinity at any pixel
+    changes the result, as in the dense form, so every pixel is needed),
+    ``zw`` read and the output written once.  FLOP: one multiply-add per
+    nonzero tap pair.  Also returns the share of the input that the taps
+    touch.
     """
     touched, _, taps = tap_support(zw, in_shape, out_shape)
     n = zw.shape[0]
-    nbytes = 32 * sectors(touched) + 4 * n * (4 + out_shape[0] * out_shape[1])
+    nbytes = 4 * n * (in_shape[0] * in_shape[1] + 4
+                      + out_shape[0] * out_shape[1])
     return nbytes, 2 * taps, touched.sum().item() / touched.numel()
 
 
@@ -376,7 +383,80 @@ def kernel_phase(st_kernel, invert_where, bw, f32_peak):
         raise AssertionError("near-zero-scale paste is not finite and 0")
     print("  out-of-bounds gather and near-zero-scale paste: exactly 0",
           flush=True)
+    nonfinite_phase(st_kernel, invert_where, backward=False)
     return rows
+
+
+def same_pattern(kernel, plain) -> bool:
+    """NaN, +inf and -inf at the same entries."""
+    return all(torch.equal(test(kernel), test(plain))
+               for test in (torch.isnan, torch.isposinf, torch.isneginf))
+
+
+def nonfinite_phase(st_kernel, invert_where, backward):
+    """A NaN, +inf or -inf at an input pixel that a tap reaches (example
+    0), at one that none reaches (example 1), and none (example 2), at
+    the gather and paste shapes in both modes: the kernel gives the plain
+    version's pattern of NaN and +-inf, and the finite example the bits
+    it has alone.  With ``backward``, the backward kernel, with the value
+    in the image and then in the cotangent."""
+    from attend_infer_repeat_torch.ops.spatial_transformer import st_weights
+
+    gen = torch.Generator("cuda").manual_seed(3)
+    cases = 0
+    for in_shape, out_shape, window, paste in (
+            # windows that leave the image: some pixels of both the input
+            # and the output have no tap
+            ((50, 50), (20, 20), [0.5, 0.5, 0.9, 0.0], False),
+            ((20, 20), (50, 50), [0.5, 0.5, 0.9, 0.0], True)):
+        zw = torch.tensor([window] * 3, device="cuda")
+        if paste:
+            zw = invert_where(zw).contiguous()
+        w_y, w_x = st_weights(zw[:1], out_shape, in_shape)
+        live = (w_y[0] != 0).any(0)[:, None] & (w_x[0] != 0).any(0)[None]
+        px = (tuple(live.nonzero()[0].tolist()),
+              tuple((~live).nonzero()[0].tolist()))
+        # the cotangent at an output pixel with (and one without) a tap
+        live_g = (w_y[0] != 0).any(1)[:, None] & (w_x[0] != 0).any(1)[None]
+        gx = (tuple(live_g.nonzero()[0].tolist()),
+              tuple((~live_g).nonzero()[0].tolist()))
+        for value, mode in [(v, m) for v in (float("nan"), float("inf"),
+                                             -float("inf"))
+                            for m in ("float32", "bfloat16")]:
+            for where in ("img", "g") if backward else ("img",):
+                img = torch.rand((3,) + in_shape, generator=gen,
+                                 device="cuda")
+                g = torch.randn((3,) + out_shape, generator=gen,
+                                device="cuda")
+                t, at = (img, px) if where == "img" else (g, gx)
+                t[(0,) + at[0]] = value
+                t[(1,) + at[1]] = value
+                if backward:
+                    k = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape,
+                                                     mode)
+                    p = st_kernel.st_gather_bwd_plain(img, zw, g, out_shape,
+                                                      mode)
+                    alone = st_kernel.st_gather_bwd_cuda(
+                        img[2:], zw[2:], g[2:], out_shape, mode)
+                    ok = all(same_pattern(a, b) and torch.equal(a[2:], c)
+                             for a, b, c in zip(k, p, alone))
+                else:
+                    k = st_kernel.st_gather_cuda(img, zw, out_shape, mode)
+                    p = st_kernel.st_gather_plain(img, zw, out_shape, mode)
+                    ok = same_pattern(k, p) and torch.equal(
+                        k[2:], st_kernel.st_gather_cuda(img[2:], zw[2:],
+                                                        out_shape, mode))
+                if not ok:
+                    raise AssertionError(
+                        f"{'backward' if backward else 'forward'} "
+                        f"{in_shape}->{out_shape} {mode}: {value} in {where}"
+                        f": not the plain version's NaN/inf pattern")
+                cases += 1
+    print(f"  non-finite inputs: the plain version's NaN/+-inf pattern in "
+          f"{cases} cases (NaN, +inf, -inf at a tapped and an untapped "
+          f"pixel{', in img and in g' if backward else ''}; gather and "
+          f"paste; f32 and bf16), the finite example's bits kept",
+          flush=True)
 
 
 def branch_phase(st_kernel, invert_where, gen, shapes, backward):
@@ -433,10 +513,12 @@ def check_infer(out, batch, cfg):
 
 
 def slice_phase(air, st_kernel, smi):
-    """The serving path, end to end; returns the kernel launches it made."""
+    """The serving path, end to end, through its CUDA graphs; returns the
+    kernel launches it made."""
     from attend_infer_repeat_torch.data import load_digit_bank, make_synth_fn
     from attend_infer_repeat_torch.serving import (
         make_generate_fn, make_infer_fn)
+    from attend_infer_repeat_torch.utils import debug_mode, graphs
 
     cfg = air.get_config("serving")
     fast = air.get_config("canonical_fast")
@@ -450,6 +532,8 @@ def slice_phase(air, st_kernel, smi):
     generate = make_generate_fn(cfg, model)
     gen = torch.Generator("cuda").manual_seed(0)
     per_forward = 2 * cfg.model.max_steps   # one gather + one paste a step
+    # a graph's first call runs its warm-up eagerly, then replays
+    first = 1 + graphs.WARMUP
 
     st_kernel.launches = st_kernel.bwd_launches = 0
     expected = 0
@@ -462,7 +546,7 @@ def slice_phase(air, st_kernel, smi):
                                  f"expected {expected}")
 
     (imgs, nums), dt = timed(synth, N_SERVE, gen)
-    expect(1, "synthesis")
+    expect(first, "synthesis")
     if not (imgs.shape == (N_SERVE, 50, 50) and torch.isfinite(imgs).all()
             and imgs.min() >= 0 and imgs.max() <= 1):
         raise AssertionError("synthesized canvases out of range")
@@ -472,21 +556,22 @@ def slice_phase(air, st_kernel, smi):
     rates = []
     for r in range(4):
         out, dt = timed(infer, imgs, gen)
-        expect(per_forward, f"serving request {r}")
+        expect(per_forward * (first if r == 0 else 1), f"serving request {r}")
         check_infer(out, N_SERVE, cfg.model)
         rates.append(N_SERVE / dt)
         print(f"  serving request {r}: {dt * 1e3:.2f} ms, "
               f"{N_SERVE / dt:.1f} img/s", flush=True)
     wide = torch.cat([imgs, torch.flip(imgs, dims=[2])], 0)
     out, dt = timed(infer_tiled, wide, gen)
-    expect(2 * per_forward, "tiled request of 16384")
+    expect((graphs.WARMUP + 2) * per_forward, "tiled request of 16384")
     check_infer(out, 2 * N_SERVE, cfg.model)
     print(f"  tiled request of {2 * N_SERVE} (tile {N_SERVE}): "
           f"{dt * 1e3:.2f} ms", flush=True)
     fast_rates = []
     for r in range(2):
         out, dt = timed(infer_fast, imgs, gen)
-        expect(per_forward, f"canonical_fast request {r}")
+        expect(per_forward * (first if r == 0 else 1),
+               f"canonical_fast request {r}")
         check_infer(out, N_SERVE, fast.model)
         fast_rates.append(N_SERVE / dt)
         print(f"  canonical_fast request {r}: {dt * 1e3:.2f} ms, "
@@ -494,7 +579,7 @@ def slice_phase(air, st_kernel, smi):
     gen_rates = []
     for r in range(2):
         scenes, dt = timed(generate, N_SERVE, gen)
-        expect(1, f"generate {r}")
+        expect(first if r == 0 else 1, f"generate {r}")
         if not (scenes.shape == (N_SERVE, 50, 50)
                 and torch.isfinite(scenes).all() and scenes.min() >= 0
                 and scenes.max() <= cfg.model.max_steps):
@@ -505,8 +590,9 @@ def slice_phase(air, st_kernel, smi):
     launches = st_kernel.launches
     if st_kernel.bwd_launches:
         raise AssertionError("serving launched the backward kernel")
-    print(f"  main path: {launches} kernel launches "
-          f"({per_forward} per forward of one tile)", flush=True)
+    print(f"  main path: {launches} kernel launches ({per_forward} per "
+          f"forward of one tile; a graph's first call adds its "
+          f"{graphs.WARMUP} warm-up runs)", flush=True)
     print(f"  infer img/s at batch {N_SERVE} (serving, requests 1-3 median): "
           f"{statistics.median(rates[1:]):.1f} on {smi}", flush=True)
     print(f"  infer img/s at batch {N_SERVE} (canonical_fast, request 1): "
@@ -514,23 +600,25 @@ def slice_phase(air, st_kernel, smi):
     print(f"  generate img/s at batch {N_SERVE} (call 1): "
           f"{gen_rates[1]:.1f} on {smi}", flush=True)
 
-    # the same request through the plain spatial transformer on the card
+    # the same request through the plain spatial transformer on the card:
+    # eagerly (a replay would not see the swap and run the kernel again)
     noise = model.sample_noise(N_SERVE, gen)
     out_k, dt_k = timed(infer, imgs, noise=noise)
     kernel_fn = st_kernel.st_gather_cuda
     st_kernel.st_gather_cuda = st_kernel.st_gather_plain
     try:
-        infer(imgs, noise=noise)
-        out_p, dt_p = timed(infer, imgs, noise=noise)
+        with debug_mode(nans=False):
+            infer(imgs, noise=noise)
+            out_p, dt_p = timed(infer, imgs, noise=noise)
     finally:
         st_kernel.st_gather_cuda = kernel_fn
     canvas_err = (out_k["canvas"] - out_p["canvas"]).abs().max().item()
     elbo_rel = ((out_k["elbo"] - out_p["elbo"]).abs()
                 / out_p["elbo"].abs().clamp(min=1.0)).max().item()
     pres_equal = torch.equal(out_k["presence"], out_p["presence"])
-    print(f"  kernel vs plain ST on one request: canvas max abs err "
-          f"{canvas_err:.3g}, elbo max rel err {elbo_rel:.3g}, presence "
-          f"{'equal' if pres_equal else 'DIFFERS'}; request "
+    print(f"  kernel (graphed) vs plain ST (eager) on one request: canvas max "
+          f"abs err {canvas_err:.3g}, elbo max rel err {elbo_rel:.3g}, "
+          f"presence {'equal' if pres_equal else 'DIFFERS'}; request "
           f"{dt_k * 1e3:.2f} ms with the kernel, {dt_p * 1e3:.2f} ms plain",
           flush=True)
     if not (canvas_err <= 1e-4 and elbo_rel <= 1e-5 and pres_equal):
@@ -538,22 +626,23 @@ def slice_phase(air, st_kernel, smi):
                              "the plain spatial transformer")
     return launches
 
+
 def gather_bwd_work(zw, in_shape, out_shape, need_img):
     """Bytes and FLOP that this gather's backward needs on these ``zw``.
 
-    Reads, by 32-byte sector: the input pixels the forward's taps touch,
-    and the cotangent ``g`` at the output pixels that have a tap (at any
-    other pixel the hat weights and their dW/dp, which share a support,
-    are 0, so neither gradient depends on ``g`` there); ``zw`` read and
-    ``g_zw`` written; ``g_img`` written whole when asked for.  FLOP: per
-    nonzero tap pair, the two zw sums take two multiply-adds each and
-    ``g_img`` two more.  Also returns the touched shares of the input and
-    of ``g``.
+    Reads the whole input and the whole cotangent ``g`` once (a NaN or an
+    infinity anywhere in either changes the gradients, as in the dense
+    form), ``zw`` read and ``g_zw`` written; ``g_img`` written whole when
+    asked for.  FLOP: per nonzero tap pair, the two zw sums take two
+    multiply-adds each and ``g_img`` two more.  Also returns the shares
+    of the input and of ``g`` that the taps touch (where the sums need
+    them).
     """
     touched_in, touched_out, taps = tap_support(zw, in_shape, out_shape)
     n = zw.shape[0]
-    nbytes = (32 * (sectors(touched_in) + sectors(touched_out)) + 32 * n
-              + (4 * n * in_shape[0] * in_shape[1] if need_img else 0))
+    n_in = in_shape[0] * in_shape[1]
+    nbytes = (4 * n * (n_in + out_shape[0] * out_shape[1]) + 32 * n
+              + (4 * n * n_in if need_img else 0))
     return (nbytes, 2 * taps * (6 if need_img else 4),
             touched_in.sum().item() / touched_in.numel(),
             touched_out.sum().item() / touched_out.numel())
@@ -709,6 +798,7 @@ def bwd_phase(st_kernel, invert_where, bw, f32_peak):
         raise AssertionError("out-of-range backward is not exactly 0")
     print("  out-of-range windows and near-zero-scale pastes: both "
           "gradients exactly 0", flush=True)
+    nonfinite_phase(st_kernel, invert_where, backward=True)
     return rows
 
 
@@ -720,13 +810,19 @@ def check_metrics(metrics, what):
 
 
 def train_phase(air, st_kernel, smi, bank):
-    """canonical_fast train steps at batch 1024, then one eval step;
-    returns the forward and backward kernel launches of that run."""
+    """canonical_fast train steps at batch 1024, eagerly (``debug_mode``)
+    and through the step's CUDA graph from the same state, held bit-equal
+    and timed; then one eager ``make_eval_step``.  Returns the forward
+    and backward kernel launches of that run, the eager state and its
+    step."""
     from attend_infer_repeat_torch.data import make_synth_fn
+    from attend_infer_repeat_torch.utils import debug_mode, graphs
 
     fast = air.get_config("canonical_fast")
     state = air.create_train_state(fast, seed=0)
+    graphed = air.create_train_state(fast, seed=0)
     step = air.make_train_step(fast, state.model, digit_bank=bank)
+    graphed_step = air.make_train_step(fast, graphed.model, digit_bank=bank)
     synth = make_synth_fn(fast.data, bank)
     eval_step = air.make_eval_step(fast, state.model)
     start = {k: v.clone() for k, v in state.model.state_dict().items()}
@@ -735,21 +831,22 @@ def train_phase(air, st_kernel, smi, bank):
     warm, timed_steps = 3, 20
 
     st_kernel.launches = st_kernel.bwd_launches = 0
-    for i in range(warm):
-        state, m = step(state)
-        counts = (st_kernel.launches, st_kernel.bwd_launches)
-        if counts != ((i + 1) * per_step[0], (i + 1) * per_step[1]):
-            raise AssertionError(f"train step {i}: launches {counts}, "
-                                 f"expected {per_step} per step")
-        check_metrics(m, f"train step {i}")
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    rows = []
-    for _ in range(timed_steps):
-        state, m = step(state)
-        rows.append(m)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t) / timed_steps
+    with debug_mode(nans=False):
+        for i in range(warm):
+            state, m = step(state)
+            counts = (st_kernel.launches, st_kernel.bwd_launches)
+            if counts != ((i + 1) * per_step[0], (i + 1) * per_step[1]):
+                raise AssertionError(f"train step {i}: launches {counts}, "
+                                     f"expected {per_step} per step")
+            check_metrics(m, f"train step {i}")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rows = []
+        for _ in range(timed_steps):
+            state, m = step(state)
+            rows.append(m)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) / timed_steps
     for i, m in enumerate(rows):
         check_metrics(m, f"train step {warm + i}")
     n_steps = warm + timed_steps
@@ -761,32 +858,66 @@ def train_phase(air, st_kernel, smi, bank):
     if not (moved > 0 and state.step == n_steps):
         raise AssertionError("the train steps changed no parameter")
     last = rows[-1]
-    print(f"  {n_steps} train steps (canonical_fast, batch {N_TRAIN}): "
+    print(f"  {n_steps} eager train steps (canonical_fast, batch {N_TRAIN}): "
           f"{per_step[0]} forward and {per_step[1]} backward launches per "
           f"step; last loss {last['loss'].item():.1f}, elbo "
           f"{last['elbo'].item():.2f}, grad_norm "
           f"{last['grad_norm'].item():.1f}; parameters moved up to "
           f"{moved:.3g}", flush=True)
-    print(f"  train step {dt * 1e3:.3f} ms (mean of {timed_steps} after "
-          f"{warm} warm-up), {N_TRAIN / dt:.1f} train img/s at batch "
-          f"{N_TRAIN} on {smi}", flush=True)
+
+    graphed_rows = []
+    for i in range(warm):
+        graphed, m = graphed_step(graphed)
+        graphed_rows.append(m)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(timed_steps):
+        graphed, m = graphed_step(graphed)
+        graphed_rows.append(m)
+    torch.cuda.synchronize()
+    dt_graph = (time.perf_counter() - t) / timed_steps
+    want = rows_of(rows[-timed_steps:])
+    got = rows_of(graphed_rows[-timed_steps:])
+    gap = hold_to_step_limits("graphed single step",
+                              *state_gap(graphed, state), rows_gap(got, want))
+    counts = (st_kernel.launches, st_kernel.bwd_launches)
+    if counts != ((2 * n_steps + graphs.WARMUP) * per_step[0],
+                  (2 * n_steps + graphs.WARMUP) * per_step[1]):
+        raise AssertionError(f"graphed train steps: launches {counts}")
+    (entry,) = graphed_step.graphs.values()
+    print(f"  the same {n_steps} steps through make_train_step's CUDA graph "
+          f"(capture at the first call, after {graphs.WARMUP} warm-up "
+          f"steps): parameters, optimizer state and metrics {gap}; graph "
+          f"pool {entry.graph.pool_bytes / 2**20:.1f} MiB", flush=True)
+    print(f"  single train step: eager {dt * 1e3:.3f} ms ({N_TRAIN / dt:.1f} "
+          f"train img/s), graphed {dt_graph * 1e3:.3f} ms "
+          f"({N_TRAIN / dt_graph:.1f} train img/s), {dt / dt_graph:.2f}x; "
+          f"mean of {timed_steps} after {warm}, batch {N_TRAIN} on {smi}",
+          flush=True)
 
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
     gen = torch.Generator("cuda").manual_seed(2)
-    imgs, nums = synth(N_TRAIN, gen)
-    metrics, out = eval_step(state, imgs, nums, gen)
+    with debug_mode(nans=False):
+        imgs, nums = synth(N_TRAIN, gen)
+        metrics, out = eval_step(state, imgs, nums, gen)
     check_metrics(metrics, "eval step")
     if not all(torch.equal(v, before[k])
                for k, v in state.model.state_dict().items()):
         raise AssertionError("the eval step changed a parameter")
     counts = (st_kernel.launches, st_kernel.bwd_launches)
-    if counts != (n_steps * per_step[0] + 1 + 2 * n_cells,
-                  n_steps * per_step[1]):
+    if counts != ((2 * n_steps + graphs.WARMUP) * per_step[0] + 1
+                  + 2 * n_cells,
+                  (2 * n_steps + graphs.WARMUP) * per_step[1]):
         raise AssertionError(f"eval step: launches {counts}")
-    print(f"  eval step: count accuracy "
+    print(f"  eval step (eager): count accuracy "
           f"{metrics['count_accuracy_mode'].item():.4f} (mode, random "
           f"weights), parameters unchanged", flush=True)
     return counts, state, step
+
+
+def rows_of(rows):
+    """A list of metric dicts as one dict of stacked rows."""
+    return {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
 
 
 def step_kernel_phase(st_kernel, state, step, bw, f32_peak):
@@ -794,6 +925,8 @@ def step_kernel_phase(st_kernel, state, step, bw, f32_peak):
     each kernel against plain and timed on exactly those inputs: the
     windows, images and cotangents that the step really gives them.
     Returns the forward and backward rows, in the order of the calls."""
+    from attend_infer_repeat_torch.utils import debug_mode
+
     calls = []
     kernels = st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda
 
@@ -811,7 +944,8 @@ def step_kernel_phase(st_kernel, state, step, bw, f32_peak):
     st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda = (record_fwd,
                                                               record_bwd)
     try:
-        step(state)
+        with debug_mode(nans=False):     # a replay would call no wrapper
+            step(state)
     finally:
         st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda = kernels
     torch.cuda.synchronize()
@@ -933,7 +1067,7 @@ def loop_phase(air, st_kernel, smi):
     """``train()`` on canonical_fast at batch 1024; a resumed run against
     an uninterrupted one; then the CLI.  Returns the forward and backward
     launches of the uninterrupted run."""
-    from attend_infer_repeat_torch.train.step import StepGraph
+    from attend_infer_repeat_torch.utils.graphs import WARMUP
 
     fast = air.get_config("canonical_fast")
     half = LOOP_STEPS // 2
@@ -953,9 +1087,8 @@ def loop_phase(air, st_kernel, smi):
             raise AssertionError(f"train() stopped at step {state.step}")
         # one graph: its warm-up steps run eagerly, then every step is a
         # replay; the log points add forward launches only
-        n_bwd = 6 * (LOOP_STEPS + StepGraph.WARMUP)
-        if counts[1] != n_bwd or counts[0] < 7 * (LOOP_STEPS
-                                                  + StepGraph.WARMUP):
+        n_bwd = 6 * (LOOP_STEPS + WARMUP)
+        if counts[1] != n_bwd or counts[0] < 7 * (LOOP_STEPS + WARMUP):
             raise AssertionError(f"train(): launches {counts}, expected "
                                  f"{n_bwd} backward and 7 forward a step")
         check_loop_rows(loop_rows(whole), half, (half, LOOP_STEPS),
@@ -1046,8 +1179,8 @@ def graph_phase(air, st_kernel, smi, bank):
     its CUDA graph against the same steps run eagerly, for K = 4 and 100;
     then step walls, eager and graphed, with remat ``save_st`` and off.
     Returns the launch counts of that run and the step walls."""
-    from attend_infer_repeat_torch.train.step import StepGraph
     from attend_infer_repeat_torch.utils import debug_mode
+    from attend_infer_repeat_torch.utils.graphs import WARMUP
 
     fast = air.get_config("canonical_fast")
     k_full = fast.train.scan_steps
@@ -1069,7 +1202,7 @@ def graph_phase(air, st_kernel, smi, bank):
                                                       k)
                 (eager, want), dt_eager = timed(eager_scan, eager)
             for i, n in enumerate(per_step):
-                expected[i] += n * (StepGraph.WARMUP + 2 * k)
+                expected[i] += n * (WARMUP + 2 * k)
             counts = (st_kernel.launches, st_kernel.bwd_launches)
             if list(counts) != expected:
                 raise AssertionError(f"graphed K={k} ({tag}): launches "
@@ -1116,6 +1249,122 @@ def graph_phase(air, st_kernel, smi, bank):
     return counts, walls
 
 
+def entry_points_phase(air, st_kernel, smi, bank):
+    """The JAX package's other jitted entry points as CUDA graphs, each
+    against its eager call (``debug_mode``) at full width, from one
+    generator state: serving infer (the ``serving`` preset and the
+    ``canonical_fast`` model) and generate at batch 8192, tiled infer at
+    16384, synthesis, eval and IWAE at 1024, and the single train step on
+    an external host batch.  Results bit-equal and generators left in one
+    state; walls of both paths; each graph's memory pool.  Returns the
+    launch counts of that run."""
+    from attend_infer_repeat_torch.data import make_synth_fn
+    from attend_infer_repeat_torch.eval import make_iwae_eval_step
+    from attend_infer_repeat_torch.serving import (
+        make_generate_fn, make_infer_fn)
+    from attend_infer_repeat_torch.utils import debug_mode, graphs
+
+    serving = air.get_config("serving")
+    fast = air.get_config("canonical_fast")
+    st_kernel.launches = st_kernel.bwd_launches = 0
+    reps = 3
+
+    def versus(name, fn, args, seed, batch, cache=None):
+        """``fn(*args, generator)``: the graph's first call (the capture),
+        then ``reps`` graphed and ``reps`` eager calls, timed; the first
+        graphed and eager calls from generators in one state.  ``cache``:
+        the graphs ``fn`` replays (``fn.graphs`` by default)."""
+        gens = [torch.Generator("cuda").manual_seed(seed) for _ in range(2)]
+        got = fn(*args, gens[0])
+        with debug_mode(nans=False):
+            want = fn(*args, gens[1])
+        a, b = graphs.leaves(got), graphs.leaves(want)
+        if not (len(a) == len(b) and all(x.dtype == y.dtype
+                                         and torch.equal(x, y)
+                                         for x, y in zip(a, b))):
+            raise AssertionError(f"{name}: graphed and eager results differ")
+        if not torch.equal(gens[0].get_state(), gens[1].get_state()):
+            raise AssertionError(f"{name}: the generators differ after")
+        walls = {"graphed": [], "eager": []}
+        for mode in walls:
+            with debug_mode(nans=False) if mode == "eager" \
+                    else contextlib.nullcontext():
+                for r in range(reps):
+                    g = torch.Generator("cuda").manual_seed(seed + 1 + r)
+                    walls[mode].append(timed(fn, *args, g)[1])
+        ms = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+        cache = fn.graphs if cache is None else cache
+        pool = sum(e.graph.pool_bytes for e in cache.values())
+        print(f"  {name}: graphed and eager bit-equal, generator left in one "
+              f"state; wall graphed {ms['graphed']:.3f} ms "
+              f"({batch / ms['graphed'] * 1e3:.1f} img/s), eager "
+              f"{ms['eager']:.3f} ms ({batch / ms['eager'] * 1e3:.1f} img/s), "
+              f"{ms['eager'] / ms['graphed']:.2f}x (medians of {reps}); "
+              f"graph pool {pool / 2**20:.1f} MiB; {smi}", flush=True)
+        return got
+
+    imgs, _ = make_synth_fn(serving.data, bank)(
+        N_SERVE, torch.Generator("cuda").manual_seed(7))
+    model = air.AIRModel(serving.model, use_baseline=False, seed=0)
+    model_fast = air.AIRModel(fast.model, use_baseline=False, seed=1)
+    versus(f"infer, serving, batch {N_SERVE}", make_infer_fn(serving, model),
+           (imgs,), 10, N_SERVE)
+    versus(f"infer, canonical_fast model, batch {N_SERVE}",
+           make_infer_fn(fast, model_fast), (imgs,), 11, N_SERVE)
+    wide = torch.cat([imgs, torch.flip(imgs, dims=[2])], 0)
+    versus(f"tiled infer, batch {2 * N_SERVE}, tile {N_SERVE}",
+           make_infer_fn(serving, model, tile=N_SERVE), (wide,), 12,
+           2 * N_SERVE)
+    versus(f"generate, batch {N_SERVE}", make_generate_fn(serving, model),
+           (N_SERVE,), 13, N_SERVE)
+    del wide, model, model_fast
+
+    state = air.create_train_state(fast, seed=11)
+    synth = make_synth_fn(fast.data, bank)
+    imgs, nums = versus(f"synthesis, batch {N_TRAIN}", synth, (N_TRAIN,), 14,
+                        N_TRAIN)
+    eval_step = air.make_eval_step(fast, state.model)
+    versus(f"eval step, batch {N_TRAIN}",
+           lambda g: eval_step(state, imgs, nums, g), (), 15, N_TRAIN,
+           eval_step.graphs)
+    iwae = make_iwae_eval_step(fast, state.model.with_config(
+        dataclasses.replace(fast.model, explore_eps=None)), 5)
+    versus(f"IWAE step, 5 particles, batch {N_TRAIN}",
+           lambda g: iwae(state, imgs, g), (), 16, N_TRAIN, iwae.graphs)
+
+    graphed = air.create_train_state(fast, seed=12)
+    eager = air.create_train_state(fast, seed=12)
+    step = air.make_train_step(fast, graphed.model)
+    eager_step = air.make_train_step(fast, eager.model)
+    walls = {"graphed": [], "eager": []}
+    rows = {"graphed": [], "eager": []}
+    for i in range(2 + reps):
+        host = tuple(t.cpu() for t in synth(
+            N_TRAIN, torch.Generator("cuda").manual_seed(20 + i)))
+        (graphed, m), dt = timed(step, graphed, host)
+        walls["graphed"].append(dt)
+        rows["graphed"].append(m)
+        with debug_mode(nans=False):
+            (eager, m), dt = timed(eager_step, eager, host)
+        walls["eager"].append(dt)
+        rows["eager"].append(m)
+    gap = hold_to_step_limits("graphed step on a host batch",
+                              *state_gap(graphed, eager),
+                              rows_gap(rows_of(rows["graphed"]),
+                                       rows_of(rows["eager"])))
+    ms = {k: statistics.median(v[2:]) * 1e3 for k, v in walls.items()}
+    (entry,) = step.graphs.values()
+    print(f"  single train step on an external host batch (canonical_fast, "
+          f"batch {N_TRAIN}, {2 + reps} steps): parameters, optimizer state "
+          f"and metrics {gap}; wall graphed {ms['graphed']:.3f} ms, eager "
+          f"{ms['eager']:.3f} ms (medians of {reps}), "
+          f"{ms['eager'] / ms['graphed']:.2f}x; graph pool "
+          f"{entry.graph.pool_bytes / 2**20:.1f} MiB; {smi}", flush=True)
+    del step, eager_step, iwae, eval_step, synth
+    torch.cuda.empty_cache()
+    return st_kernel.launches, st_kernel.bwd_launches
+
+
 def mesh_phase(air, st_kernel, bank):
     """The data-parallel steps on a one-rank NCCL mesh against the plain
     step; returns the launch counts of that run."""
@@ -1123,41 +1372,46 @@ def mesh_phase(air, st_kernel, bank):
     from attend_infer_repeat_torch.data import make_synth_fn
     from attend_infer_repeat_torch.parallel import (
         make_mesh, make_shardmap_train_step)
+    from attend_infer_repeat_torch.utils import debug_mode
 
     fast = air.get_config("canonical_fast")
     mesh = make_mesh()
     print(f"  mesh {mesh} on the {dist.get_backend()} backend", flush=True)
     st_kernel.launches = st_kernel.bwd_launches = 0
+    # every step eagerly: the mesh steps run so, and the one-device steps
+    # they are held against too
     try:
-        plain = air.create_train_state(fast, seed=6)
-        meshed = air.create_train_state(fast, seed=6)
-        plain, mp = air.make_train_step(fast, plain.model,
-                                        digit_bank=bank)(plain)
-        meshed, mm = air.make_train_step(fast, meshed.model, digit_bank=bank,
-                                         mesh=mesh)(meshed)
-        gap = hold_to_step_limits("mesh step", *state_gap(meshed, plain),
-                                  rows_gap(mm, mp))
-        print(f"  mesh step vs plain step: {gap}", flush=True)
+        with debug_mode(nans=False):
+            plain = air.create_train_state(fast, seed=6)
+            meshed = air.create_train_state(fast, seed=6)
+            plain, mp = air.make_train_step(fast, plain.model,
+                                            digit_bank=bank)(plain)
+            meshed, mm = air.make_train_step(
+                fast, meshed.model, digit_bank=bank, mesh=mesh)(meshed)
+            gap = hold_to_step_limits("mesh step", *state_gap(meshed, plain),
+                                      rows_gap(mm, mp))
+            print(f"  mesh step vs plain step: {gap}", flush=True)
 
-        imgs, nums = make_synth_fn(fast.data, bank)(
-            N_TRAIN, torch.Generator("cuda").manual_seed(5))
-        imgs = imgs.clone()
-        a = air.create_train_state(fast, seed=7)
-        b = air.create_train_state(fast, seed=7)
-        a, ma = air.make_train_step(fast, a.model)(a, (imgs, nums))
-        b, mb = make_shardmap_train_step(fast, b.model, bank, mesh,
-                                         external_batch=True)(b, (imgs, nums))
-        gap = hold_to_step_limits("shard-map step", *state_gap(b, a),
-                                  rows_gap(mb, ma))
-        print(f"  external-batch shard-map step vs plain step on one "
-              f"batch: {gap}", flush=True)
-        c = air.create_train_state(fast, seed=8)
-        step = make_shardmap_train_step(fast, c.model, bank, mesh)
-        for _ in range(2):
-            c, mc = step(c)
-            check_metrics(mc, "per-rank shard-map step")
-        print(f"  per-rank shard-map step: 2 steps, elbo "
-              f"{mc['elbo'].item():.2f}", flush=True)
+            imgs, nums = make_synth_fn(fast.data, bank)(
+                N_TRAIN, torch.Generator("cuda").manual_seed(5))
+            imgs = imgs.clone()
+            a = air.create_train_state(fast, seed=7)
+            b = air.create_train_state(fast, seed=7)
+            a, ma = air.make_train_step(fast, a.model)(a, (imgs, nums))
+            b, mb = make_shardmap_train_step(
+                fast, b.model, bank, mesh, external_batch=True)(
+                    b, (imgs, nums))
+            gap = hold_to_step_limits("shard-map step", *state_gap(b, a),
+                                      rows_gap(mb, ma))
+            print(f"  external-batch shard-map step vs plain step on one "
+                  f"batch: {gap}", flush=True)
+            c = air.create_train_state(fast, seed=8)
+            step = make_shardmap_train_step(fast, c.model, bank, mesh)
+            for _ in range(2):
+                c, mc = step(c)
+                check_metrics(mc, "per-rank shard-map step")
+            print(f"  per-rank shard-map step: 2 steps, elbo "
+                  f"{mc['elbo'].item():.2f}", flush=True)
     finally:
         dist.destroy_process_group()
     counts = (st_kernel.launches, st_kernel.bwd_launches)
@@ -1273,6 +1527,11 @@ def main() -> int:
     (graph_launches, graph_bwd_launches), walls = graph_phase(
         air, st_kernel, smi, bank)
 
+    print("[5d] the other entry points as CUDA graphs against eager",
+          flush=True)
+    entry_launches, entry_bwd_launches = entry_points_phase(
+        air, st_kernel, smi, bank)
+
     print("[6] one step through the plain ST on the card", flush=True)
     plain_step_phase(air, st_kernel, STEP_LIMITS)
 
@@ -1307,12 +1566,12 @@ def main() -> int:
     kernels = [
         kernel_line("st_gather", "st_gather.cu", 54,
                     launches + train_launches + graph_launches
-                    + loop_launches + mesh_launches,
+                    + entry_launches + loop_launches + mesh_launches,
                     rows + step_rows,
                     lambda c, n: (c, n) == ("gather 50x50->20x20", N_SERVE)),
         kernel_line("st_gather_bwd", "st_gather_bwd.cu", 155,
-                    bwd_launches + graph_bwd_launches + loop_bwd_launches
-                    + mesh_bwd_launches,
+                    bwd_launches + graph_bwd_launches + entry_bwd_launches
+                    + loop_bwd_launches + mesh_bwd_launches,
                     bwd_rows + step_bwd_rows,
                     lambda c, n: c.startswith("step paste bwd")),
     ]

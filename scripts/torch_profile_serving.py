@@ -1,11 +1,14 @@
 """Profile serving requests, or train steps, of the PyTorch port on the card.
 
     python3 scripts/torch_profile_serving.py [--preset serving] [--batch 8192]
+        [--eager]
     python3 scripts/torch_profile_serving.py --train [--preset canonical_fast]
         [--batch 1024] [--k 20] [--eager] [--no-remat]
 
 Serving builds the preset's model (random weights from a seed, no NVIL
-baseline) and synthesizes one batch of canvases; ``--train`` builds the
+baseline) and synthesizes one batch of canvases; a request goes through
+``make_infer_fn``'s CUDA graph, or with ``--eager`` runs eagerly
+(``utils.debug_mode``).  ``--train`` builds the
 preset's train state and its K-step chunk (``make_scan_train_step``: on
 the card one captured step replayed K times; synthesis inside the step,
 batch 1024 by default), or with ``--eager`` the eager one-step
@@ -49,16 +52,20 @@ def main() -> int:
     ap.add_argument("--k", type=int, default=20,
                     help="--train: steps per graphed chunk")
     ap.add_argument("--eager", action="store_true",
-                    help="--train: the eager one-step make_train_step")
+                    help="run eagerly (utils.debug_mode): serving requests, "
+                         "or with --train the one-step make_train_step")
     ap.add_argument("--no-remat", action="store_true",
                     help="--train: turn the preset's remat off")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
         return 1
+    import contextlib
+
     import attend_infer_repeat_torch as air
     from attend_infer_repeat_torch.data import load_digit_bank, make_synth_fn
     from attend_infer_repeat_torch.ops import st_kernel
+    from attend_infer_repeat_torch.utils import debug_mode
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -84,7 +91,12 @@ def main() -> int:
         state = air.create_train_state(cfg, seed=0)
         unit = "train step"
         if args.eager:
-            step = air.make_train_step(cfg, state.model, digit_bank=bank)
+            eager_step = air.make_train_step(cfg, state.model,
+                                             digit_bank=bank)
+
+            def step(state):
+                with debug_mode(nans=False):
+                    return eager_step(state)
         else:
             step = air.make_scan_train_step(cfg, state.model, bank, args.k)
             per = args.k
@@ -98,9 +110,13 @@ def main() -> int:
         model = air.AIRModel(cfg.model, use_baseline=False, seed=0)
         infer = air.make_infer_fn(cfg, model)
         unit = "request"
+        mode = (lambda: debug_mode(nans=False)) if args.eager \
+            else contextlib.nullcontext
+        print(f"{'eager' if args.eager else 'graphed'} requests")
 
         def work():
-            infer(imgs, gen)
+            with mode():
+                infer(imgs, gen)
     for _ in range(3):
         work()
     torch.cuda.synchronize()

@@ -29,6 +29,7 @@ from attend_infer_repeat_torch.eval import (
 )
 from attend_infer_repeat_torch.eval.metrics import host_scalars
 from attend_infer_repeat_torch.train import create_train_state, make_eval_step
+from attend_infer_repeat_torch.utils import graphs
 from attend_infer_repeat_tpu import configs as jcfg
 from attend_infer_repeat_tpu.eval import iwae as jiwae
 from attend_infer_repeat_tpu.eval import metrics as jmetrics
@@ -37,10 +38,13 @@ from attend_infer_repeat_tpu.train import state as jstate_mod
 from attend_infer_repeat_tpu.train import step as jstep_mod
 from torch_parity import (
     TINY,
+    assert_bit_equal,
     binarized_presence,
+    eager_mode,
     forward_noise,
     images,
     to_numpy_tree,
+    uncaptured,
 )
 
 torch.set_num_threads(1)
@@ -230,3 +234,55 @@ def test_count_confusion(tiny_setup):
     assert np.array_equal(res["confusion"], again["confusion"])
     txt = format_confusion(res)
     assert "overall" in txt and txt.count("\n") == res["confusion"].shape[0] + 2
+
+
+# -- the log point's eval and IWAE steps as graphs, without the capture ------
+
+def test_graphed_eval_step_equals_eager(paired, uncaptured):
+    """``make_eval_step``'s graphed path (its capture stubbed out): metrics
+    and every output bit-equal to the eager call from one generator state,
+    the generators left in one state, the prior's probability read at each
+    call's step, and the results of a call unchanged by the next."""
+    _, tc, _, _, state = paired
+    eval_step = make_eval_step(tc, state.model)
+    imgs = torch.from_numpy(images(BATCH, seed=80))
+    nums = np.random.default_rng(80).integers(0, 3, BATCH).astype(np.int32)
+    results = []
+    for step in (3, 4):
+        state.step = step
+        a, b = (torch.Generator().manual_seed(step) for _ in range(2))
+        got = eval_step(state, imgs, nums, a)
+        with eager_mode():
+            want = eval_step(state, imgs, nums, b)
+        assert_bit_equal(got, want, f"step {step}")
+        assert torch.equal(a.get_state(), b.get_state())
+        results.append((got, [t.clone() for t in graphs.leaves(got)]))
+    state.step = 3
+    for got, kept in results:
+        assert_bit_equal(graphs.leaves(got), kept)
+    # the annealed prior moved between the two calls, through one graph
+    assert results[0][0][0]["kl_steps"] != results[1][0][0]["kl_steps"]
+    assert len(eval_step.graphs) == 1
+
+
+def test_graphed_iwae_step_equals_eager(paired, uncaptured):
+    _, tc, _, _, state = paired
+    model = state.model.with_config(
+        dataclasses.replace(tc.model, explore_eps=None))
+    iwae = make_iwae_eval_step(tc, model, 3)
+    imgs = torch.from_numpy(images(BATCH, seed=81))
+    a, b = (torch.Generator().manual_seed(9) for _ in range(2))
+    got = iwae(state, imgs, a)
+    with eager_mode():
+        want = iwae(state, imgs, b)
+    assert_bit_equal(got, want)
+    assert torch.equal(a.get_state(), b.get_state())
+    kept = {k: v.clone() for k, v in got.items()}
+    iwae(state, imgs, torch.Generator().manual_seed(10))
+    assert_bit_equal(got, kept)
+    noise = [state.model.sample_noise(BATCH, torch.Generator().manual_seed(j))
+             for j in range(3)]
+    got = iwae(state, imgs, noise=noise)
+    with eager_mode():
+        assert_bit_equal(got, iwae(state, imgs, noise=noise))
+    assert len(iwae.graphs) == 1

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from attend_infer_repeat_torch import configs as tcfg
+from attend_infer_repeat_torch.utils import graphs
 
 pytestmark = pytest.mark.cuda
 
@@ -220,3 +221,198 @@ def test_train_phase_switch_through_graphs(cuda, tmp_path):
         for split in ("train", "eval", "train_eval")]
     assert all(np.isfinite(v) for r in rows for v in r.values()
                if isinstance(v, float))
+
+
+# -- the other entry points as graphs: each against its eager call ----------
+
+def assert_bit_equal(got, want):
+    a, b = graphs.leaves(got), graphs.leaves(want)
+    assert len(a) == len(b)
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert x.dtype == y.dtype and torch.equal(x, y), i
+
+
+def graphed_and_eager(fn, args, seed):
+    """``fn(*args, generator)`` graphed (twice: the capture's call and a
+    replay) and eagerly, each from a generator seeded with ``seed``: all
+    bit-equal, every generator left in one state, the first result not
+    changed by the later calls.  Returns the graphed result."""
+    from attend_infer_repeat_torch.utils import debug_mode
+
+    gens = [torch.Generator("cuda").manual_seed(seed) for _ in range(3)]
+    first = fn(*args, gens[0])
+    kept = [t.clone() for t in graphs.leaves(first)]
+    again = fn(*args, gens[1])
+    with debug_mode(nans=False):
+        want = fn(*args, gens[2])
+    assert_bit_equal(first, want)
+    assert_bit_equal(again, want)
+    assert_bit_equal(graphs.leaves(first), kept)
+    assert all(torch.equal(g.get_state(), gens[2].get_state())
+               for g in gens[:2])
+    return first
+
+
+def serving_setup(cuda):
+    from attend_infer_repeat_torch.models.air import AIRModel
+
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, prior=tcfg.get_config("serving").prior)
+    model = AIRModel(cfg.model, use_baseline=False, device=cuda, seed=2)
+    x = torch.rand((8, 24, 24), generator=torch.Generator().manual_seed(0))
+    return cfg, model, x.to(cuda)
+
+
+@pytest.mark.parametrize("tile", [None, 4])
+def test_graphed_infer_equals_eager(cuda, tile):
+    """``make_infer_fn`` through its graph (one of the tile's shape,
+    replayed per chunk) against the eager call, with the caller's
+    generator and with injected noise; a replay counts the launches of
+    one captured forward."""
+    from attend_infer_repeat_torch.ops import st_kernel
+    from attend_infer_repeat_torch.serving import make_infer_fn
+    from attend_infer_repeat_torch.utils import debug_mode, graphs
+
+    cfg, model, x = serving_setup(cuda)
+    infer = make_infer_fn(cfg, model, tile=tile)
+    per_forward = 2 * cfg.model.max_steps
+    chunks = 1 if tile is None else 8 // tile
+    st_kernel.launches = 0
+    out = graphed_and_eager(infer, (x,), 1)
+    # warm-up, then a replay per chunk in each of the two graphed calls;
+    # the eager call launches per chunk
+    assert st_kernel.launches == per_forward * (graphs.WARMUP + 3 * chunks)
+    assert out["canvas"].shape == (8, 24, 24) and len(infer.graphs) == 1
+    noise = model.sample_noise(8, torch.Generator(cuda).manual_seed(2))
+    got = infer(x, noise=noise)
+    with debug_mode(nans=False):
+        assert_bit_equal(got, infer(x, noise=noise))
+
+
+def test_graphed_generate_and_synthesis_equal_eager(cuda, bank):
+    from attend_infer_repeat_torch.data import make_synth_fn
+    from attend_infer_repeat_torch.serving import make_generate_fn
+
+    cfg, model, _ = serving_setup(cuda)
+    scenes = graphed_and_eager(make_generate_fn(cfg, model, 0.5), (8,), 3)
+    assert scenes.shape == (8, 24, 24)
+    for placement in ("grid", "uniform"):
+        data = dataclasses.replace(cfg.data, placement=placement)
+        imgs, nums = graphed_and_eager(make_synth_fn(data, bank), (8,), 4)
+        assert imgs.shape == (8, 24, 24) and nums.dtype == torch.int32
+
+
+@pytest.mark.parametrize("source", ["bank", "batch", "noise"])
+def test_graphed_single_step_equals_eager(cuda, bank, source):
+    """``make_train_step`` through its graph (on-device synthesis, a host
+    batch, injected noise) against the eager step, three steps from one
+    state: parameters, optimizer state and every metric bit-equal."""
+    from attend_infer_repeat_torch.ops import st_kernel
+    from attend_infer_repeat_torch.train import (
+        create_train_state, make_train_step)
+    from attend_infer_repeat_torch.utils import debug_mode, graphs
+
+    cfg = tiny_config()
+    graphed = create_train_state(cfg, seed=6)
+    eager = create_train_state(cfg, seed=6)
+    data = {} if source == "batch" else {"digit_bank": bank}
+    step = make_train_step(cfg, graphed.model, **data)
+    eager_step = make_train_step(cfg, eager.model, **data)
+    rng = np.random.default_rng(6)
+    st_kernel.launches = st_kernel.bwd_launches = 0
+    for i in range(3):
+        batch = noise = None
+        if source == "batch":
+            batch = (rng.random((16, 24, 24), dtype=np.float32),
+                     rng.integers(0, 3, 16).astype(np.int32))
+        if source == "noise":
+            noise = graphed.model.sample_noise(
+                16, torch.Generator(cuda).manual_seed(i))
+        graphed, got = step(graphed, batch, noise)
+        with debug_mode(nans=False):
+            eager, want = eager_step(eager, batch, noise)
+        assert_bit_equal(got, want)
+    assert_same_state(graphed, eager)
+    per_step = 2 * cfg.model.max_steps
+    synth = 0 if source == "batch" else 1
+    assert st_kernel.bwd_launches == per_step * (graphs.WARMUP + 6)
+    assert st_kernel.launches == (per_step + synth) * (graphs.WARMUP + 6)
+    assert len(step.graphs) == 1
+
+
+def test_graphed_eval_and_iwae_equal_eager(cuda, bank):
+    """``make_eval_step`` and ``make_iwae_eval_step`` through their graphs
+    against the eager calls, at two steps (the annealed prior is a device
+    input: one graph serves both)."""
+    from attend_infer_repeat_torch.data import make_synth_fn
+    from attend_infer_repeat_torch.eval import make_iwae_eval_step
+    from attend_infer_repeat_torch.train import (
+        create_train_state, make_eval_step)
+
+    cfg = tiny_config()
+    state = create_train_state(cfg, seed=7)
+    imgs, nums = make_synth_fn(cfg.data, bank)(
+        16, torch.Generator(cuda).manual_seed(5))
+    eval_step = make_eval_step(cfg, state.model)
+    iwae = make_iwae_eval_step(cfg, state.model.with_config(
+        dataclasses.replace(cfg.model, explore_eps=None)), 3)
+    kl = []
+    for step in (2, 5):
+        state.step = step
+        metrics, _ = graphed_and_eager(
+            lambda g: eval_step(state, imgs, nums, g), (), step)
+        graphed_and_eager(lambda g: iwae(state, imgs, g), (), 10 + step)
+        kl.append(metrics["kl_steps"].item())
+    assert kl[0] != kl[1]
+    assert len(eval_step.graphs) == len(iwae.graphs) == 1
+
+
+def test_graphed_infer_refuses_replaced_parameters(cuda):
+    from attend_infer_repeat_torch.serving import make_infer_fn
+
+    cfg, model, x = serving_setup(cuda)
+    infer = make_infer_fn(cfg, model)
+    infer(x)
+    model.decoder.mlp.dense[0].weight = torch.nn.Parameter(
+        model.decoder.mlp.dense[0].weight.detach().clone())
+    with pytest.raises(ValueError, match="captured"):
+        infer(x)
+
+
+def test_capture_names_a_host_sync(cuda):
+    """An operation that waits for the card raises in the last warm-up
+    run, before capture, with the operation named."""
+    from attend_infer_repeat_torch.utils import graphs
+
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError,
+                       match="_local_scalar_dense.*waits for the card"):
+        graphs.Graph(lambda: x * x.sum().item(), cuda)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_failed_capture_raises_and_leaves_the_generators_usable(cuda):
+    """An operation that only the capture meets (here one that waits for
+    the card) raises out of ``Graph``; the default generator and a
+    registered one draw as before it."""
+    from attend_infer_repeat_torch.utils import graphs
+
+    x = torch.ones(4, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(3)
+
+    def body():
+        y = x * torch.rand(4, device=cuda, generator=gen) + torch.rand(
+            4, device=cuda)
+        if torch.cuda.is_current_stream_capturing():
+            y.sum().item()
+        return y
+
+    with pytest.raises(RuntimeError):
+        graphs.Graph(body, cuda, generators=[gen])
+    draws = []
+    for _ in range(2):
+        torch.manual_seed(0)
+        gen.manual_seed(3)
+        draws.append((torch.rand(4, device=cuda),
+                      torch.rand(4, device=cuda, generator=gen)))
+    assert all(torch.equal(u, v) for u, v in zip(*draws))

@@ -158,10 +158,10 @@ def conv_stem_case(mix, size, seed=0):
     return out, jmod.apply(params, jnp.asarray(x))
 
 
-def test_conv_stem_not_ported():
-    """Kept under its old name, from when the stem raised: the stem at
-    24×24 in f32 against flax (flax pads 'SAME' as (0, 1) there), and its
-    layout: (out, in, 3, 3) kernels ahead of the MLP, in the state_dict."""
+def test_conv_stem_matches_flax():
+    """The stem at 24×24 in f32 against flax (flax pads 'SAME' as (0, 1)
+    there), and its layout: (out, in, 3, 3) kernels ahead of the MLP, in
+    the state_dict."""
     out, ref = conv_stem_case("f32", (24, 24))
     assert out.shape == (5, 32)
     check(out, ref, TOL["f32"])

@@ -14,11 +14,20 @@ from attend_infer_repeat_torch import configs as tcfg
 from attend_infer_repeat_torch.data import load_digit_bank, synthesize_batch
 from attend_infer_repeat_torch.data.digits import BANK_PATH
 from attend_infer_repeat_torch.serving import make_generate_fn, make_infer_fn
+from attend_infer_repeat_torch.utils import graphs
 from attend_infer_repeat_tpu import configs as jcfg
 from attend_infer_repeat_tpu import serving as jserving
 from attend_infer_repeat_tpu.data import digits as jdigits
 from attend_infer_repeat_tpu.data import synth as jsynth
-from torch_parity import forward_noise, generate_noise, images, paired_models
+from torch_parity import (
+    assert_bit_equal,
+    eager_mode,
+    forward_noise,
+    generate_noise,
+    images,
+    paired_models,
+    uncaptured,
+)
 
 torch.set_num_threads(1)
 
@@ -121,7 +130,7 @@ def test_grid_synthesis_matches_jax(cfg):
                                rtol=1e-5, atol=1e-5)
 
 
-def test_uniform_placement_not_ported():
+def test_uniform_placement_synthesizes():
     """Uniform placement synthesizes (its parity with the JAX package is
     in ``test_torch_data.py``): in-range canvases and true counts."""
     bank, _ = load_digit_bank("auto", (16, 16))
@@ -148,3 +157,76 @@ def test_committed_bank_equals_sklearn():
         ref, ref_lab = jdigits.load_digit_bank("auto", (16, 16), split)
         np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-5, atol=1e-6)
         assert np.array_equal(lab.numpy(), ref_lab)
+
+
+# -- serving as graphs, without the capture ---------------------------------
+
+def graphed_against_eager(fn, args, seed):
+    """``fn(*args, generator)`` on its graphed path and eagerly from one
+    generator state: the results bit-equal, the generators left in one
+    state; a second graphed call leaves the first one's results alone.
+    Returns the graphed results."""
+    a, b = (torch.Generator().manual_seed(seed) for _ in range(2))
+    got = fn(*args, a)
+    with eager_mode():
+        want = fn(*args, b)
+    assert_bit_equal(got, want)
+    assert torch.equal(a.get_state(), b.get_state())
+    kept = graphs.copy(got)
+    fn(*args, torch.Generator().manual_seed(seed + 1))
+    assert_bit_equal(got, kept, "a later call changed an earlier result")
+    return got
+
+
+@pytest.mark.parametrize("tile", [None, 4])
+def test_graphed_infer_equals_eager(uncaptured, tile):
+    """``make_infer_fn``'s graphed path (its capture stubbed out), plain and
+    tiled, from the caller's generator and with injected noise: bit-equal
+    to the eager call; one graph of the batch's (or the tile's) shape."""
+    _, _, tm = paired_models()
+    cfg = dataclasses.replace(tcfg.get_config("serving"), model=tm.cfg)
+    x = torch.from_numpy(images(8, seed=7))
+    infer = make_infer_fn(cfg, tm, tile=tile)
+    graphed_against_eager(infer, (x,), 3)
+    noise = tm.sample_noise(8, torch.Generator().manual_seed(4))
+    got = infer(x, noise=noise)
+    with eager_mode():
+        assert_bit_equal(got, infer(x, noise=noise))
+    assert len(infer.graphs) == 1
+    (entry,) = infer.graphs.values()
+    assert entry.static[0].shape[0] == (8 if tile is None else tile)
+
+
+def test_graphed_generate_equals_eager(uncaptured):
+    _, _, tm = paired_models()
+    cfg = dataclasses.replace(tcfg.get_config("serving"), model=tm.cfg)
+    generate = make_generate_fn(cfg, tm, success_prob=0.5)
+    graphed_against_eager(generate, (6,), 5)
+    noise = tm.generate_noise(6, 0.5, torch.Generator().manual_seed(6))
+    got = generate(6, noise=noise)
+    with eager_mode():
+        assert_bit_equal(got, generate(6, noise=noise))
+    assert len(generate.graphs) == 1
+
+
+def test_graphed_synthesis_equals_eager(uncaptured):
+    from attend_infer_repeat_torch.data import make_synth_fn
+
+    bank, _ = load_digit_bank("auto", (16, 16))
+    for placement in ("grid", "uniform"):
+        cfg = tcfg.DataConfig(placement=placement)
+        synth = make_synth_fn(cfg, bank, device="cpu")
+        graphed_against_eager(synth, (6,), 8)
+        assert len(synth.graphs) == 1
+
+
+def test_graphed_infer_refuses_replaced_parameters(uncaptured):
+    _, _, tm = paired_models()
+    cfg = dataclasses.replace(tcfg.get_config("serving"), model=tm.cfg)
+    infer = make_infer_fn(cfg, tm)
+    x = torch.from_numpy(images(4, seed=9))
+    infer(x, torch.Generator().manual_seed(0))
+    tm.decoder.mlp.dense[0].weight = torch.nn.Parameter(
+        tm.decoder.mlp.dense[0].weight.detach().clone())
+    with pytest.raises(ValueError, match="captured"):
+        infer(x, torch.Generator().manual_seed(0))

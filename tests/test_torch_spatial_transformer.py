@@ -168,8 +168,9 @@ def test_kernel_module_on_cpu():
                           ((20, 20), (50, 50), True)])
 def test_chip_smoke_gather_work_counts_touched_pixels(in_shape, out_shape,
                                                       paste):
-    """The card check's bound counts the input pixels the gather depends
-    on (where the plain gather's gradient is nonzero), by 32-byte sector."""
+    """The card check's bound reads the whole input once (a non-finite
+    pixel anywhere changes the result) and reports the share the taps
+    touch (where the plain gather's gradient is nonzero)."""
     chip_smoke = load_chip_smoke()
     img, zw = inputs((7,), in_shape, 3)
     zw = tst.invert_where(t(zw)) if paste else t(zw)
@@ -177,11 +178,10 @@ def test_chip_smoke_gather_work_counts_touched_pixels(in_shape, out_shape,
     st_kernel.st_gather_plain(ti, zw, out_shape).sum().backward()
     needed = (ti.grad != 0).flatten()
     nbytes, flops, touched = chip_smoke.gather_work(zw, in_shape, out_shape)
-    sectors = torch.unique(needed.nonzero()[:, 0] // 8).numel()
     n, (h, w) = zw.shape[0], out_shape
     assert 0 < touched < 1
     assert touched == needed.sum().item() / needed.numel()
-    assert nbytes == 32 * sectors + 4 * n * (4 + h * w)
+    assert nbytes == 4 * img.size + 4 * n * (4 + h * w)
     w_y, w_x = tst.st_weights(zw, out_shape, in_shape)
     taps = torch.einsum("niq,njr->", (w_y != 0).float(), (w_x != 0).float())
     assert flops == 2 * taps.item()
@@ -192,9 +192,10 @@ def test_chip_smoke_gather_work_counts_touched_pixels(in_shape, out_shape,
                           ((20, 20), (50, 50), True)])
 def test_chip_smoke_gather_bwd_work_counts_needed_cotangent(in_shape,
                                                             out_shape, paste):
-    """The card check's backward bound reads the cotangent only where the
-    plain backward depends on it (where its derivative w.r.t. ``g`` is
-    nonzero), by 32-byte sector, beside the forward's touched input."""
+    """The card check's backward bound reads the whole input and the
+    whole cotangent once (a non-finite value anywhere changes the
+    gradients) and reports the share of ``g`` the sums need (where the
+    plain backward's derivative w.r.t. ``g`` is nonzero)."""
     chip_smoke = load_chip_smoke()
     img, zw = inputs((7,), in_shape, 4)
     zw = tst.invert_where(t(zw)) if paste else t(zw)
@@ -205,15 +206,13 @@ def test_chip_smoke_gather_bwd_work_counts_needed_cotangent(in_shape,
     g_img, g_zw = st_kernel.st_gather_bwd_plain(t(img), zw, g, out_shape)
     (g_img * coef).sum().backward()
     needed_g = (g.grad != 0).flatten()
-    fwd_bytes, fwd_flops, _ = chip_smoke.gather_work(zw, in_shape, out_shape)
-    fwd_out_bytes = 4 * n * (4 + out_shape[0] * out_shape[1])
-    g_sectors = torch.unique(needed_g.nonzero()[:, 0] // 8).numel()
+    _, fwd_flops, _ = chip_smoke.gather_work(zw, in_shape, out_shape)
     for need_img in (True, False):
         nbytes, flops, touched, g_touched = chip_smoke.gather_bwd_work(
             zw, in_shape, out_shape, need_img)
         assert 0 < g_touched < 1
         assert g_touched == needed_g.sum().item() / needed_g.numel()
         img_bytes = 4 * g_img.numel() if need_img else 0
-        assert nbytes == (fwd_bytes - fwd_out_bytes + 32 * g_sectors
-                          + 32 * n + img_bytes)
+        assert nbytes == (4 * (img.size + g.numel()) + 32 * n
+                          + img_bytes)
         assert flops == fwd_flops * (6 if need_img else 4)

@@ -25,6 +25,7 @@ import torch
 
 from attend_infer_repeat_torch.ops import spatial_transformer as tst
 from attend_infer_repeat_torch.ops import st_kernel
+from attend_infer_repeat_torch.utils import graphs
 
 pytestmark = pytest.mark.cuda
 
@@ -162,10 +163,16 @@ def test_model_on_the_card_matches_the_cpu(cuda):
     x = torch.rand((16, 24, 24), generator=torch.Generator().manual_seed(0))
     noise = cpu.sample_noise(16, torch.Generator().manual_seed(1))
     ref = make_infer_fn(cfg, cpu)(x, noise=noise)
+    infer = make_infer_fn(cfg, card)
+    noise = tuple(a.to(cuda) for a in noise)
     before = st_kernel.launches
-    out = make_infer_fn(cfg, card)(x.to(cuda),
-                                   noise=tuple(a.to(cuda) for a in noise))
-    assert st_kernel.launches == before + 2 * model_cfg.max_steps
+    out = infer(x.to(cuda), noise=noise)
+    # the graph's first call: its warm-up runs, then one replay
+    per_call = 2 * model_cfg.max_steps
+    assert st_kernel.launches == before + (graphs.WARMUP + 1) * per_call
+    assert torch.equal(infer(x.to(cuda), noise=noise)["canvas"],
+                       out["canvas"])
+    assert st_kernel.launches == before + (graphs.WARMUP + 2) * per_call
     assert torch.equal(out["presence"].cpu(), ref["presence"])
     for k in ("canvas", "z_where", "what_loc", "num_steps_pmf"):
         assert max_err(out[k].cpu(), ref[k]) <= 1e-4, k
@@ -277,7 +284,10 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         loss, _ = make_objective_loss_fn(cfg, state.model, imgs, None, p,
                                          kl_warmup(cfg, 0), nz)()
         names, params = zip(*state.model.named_parameters())
-        return loss, dict(zip(names, torch.autograd.grad(loss, params)))
+        # detached: a live autograd graph keeps the parameters' gradient
+        # nodes on this stream, which the step's capture may not join
+        return loss.detach(), dict(zip(names,
+                                       torch.autograd.grad(loss, params)))
 
     loss_c, g_c = grads(cpu, x, noise)
     before = (st_kernel.launches, st_kernel.bwd_launches)
@@ -364,21 +374,125 @@ def test_kernels_match_plain_on_branch_windows(cuda, mode, kind, in_shape,
 ])
 def test_backward_nan_cotangent_contract(cuda, in_shape, out_shape, window,
                                          live_px, dead_px):
-    """The kernel uses g only where a tap is live.  A NaN there gives NaN
-    in both gradients wherever the dense plain version has it; a NaN at a
-    pixel with no tap reaches neither (plain spreads it: 0 * NaN)."""
-    img, _ = inputs(2, in_shape, 14)
-    zw = torch.tensor([window, window], device=cuda)
-    g = torch.randn((2,) + out_shape, device=cuda)
-    g[(0,) + live_px] = float("nan")
-    g[(1,) + dead_px] = float("nan")
-    k = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape)
-    p = st_kernel.st_gather_bwd_plain(img, zw, g, out_shape)
-    for a, b in zip(k, p):
-        assert torch.isnan(b).all()
-        assert torch.equal(torch.isnan(a[0]), torch.isnan(b[0]))
-        assert not torch.isnan(a[1]).any()
-    clean = g.clone()
-    clean[(1,) + dead_px] = 0.0
-    ref = st_kernel.st_gather_bwd_cuda(img[1:], zw[1:], clean[1:], out_shape)
-    assert torch.equal(k[0][1], ref[0][0]) and torch.equal(k[1][1], ref[1][0])
+    """A NaN or an infinity in the cotangent gives both gradients the
+    dense plain version's pattern of NaN and +-inf, at a pixel with a live
+    tap and at one with none (where the dense form spreads it: 0 * NaN,
+    0 * inf); a finite example beside them keeps its bits."""
+    img, _ = inputs(3, in_shape, 14)
+    zw = torch.tensor([window] * 3, device=cuda)
+    for value in (float("nan"), float("inf"), -float("inf")):
+        g = torch.randn((3,) + out_shape, device=cuda)
+        g[(0,) + live_px] = value
+        g[(1,) + dead_px] = value
+        k = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape)
+        p = st_kernel.st_gather_bwd_plain(img, zw, g, out_shape)
+        for a, b in zip(k, p):
+            assert_same_pattern(a[:2], b[:2])
+            assert not torch.isfinite(b[:2]).all()
+        ref = st_kernel.st_gather_bwd_cuda(img[2:], zw[2:], g[2:], out_shape)
+        assert torch.equal(k[0][2:], ref[0]) and torch.equal(k[1][2:], ref[1])
+
+
+def assert_same_pattern(kernel, plain, tol=1e-5):
+    """NaN, +inf and -inf where the plain version has them, and the
+    finite entries within ``tol`` of max(1, max|plain|) of the plain's."""
+    torch.cuda.synchronize()
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(test(kernel), test(plain)), test.__name__
+    finite = torch.isfinite(plain)
+    if finite.any():
+        scale = max(1.0, plain[finite].abs().max().item())
+        err = (kernel[finite] - plain[finite]).abs().max().item()
+        assert err <= tol * scale, err
+
+
+def tapped_pixels(zw, in_shape, out_shape):
+    """``(live, dead)``: an input pixel of example 0 that some output taps
+    with a nonzero weight, and one that none does."""
+    w_y, w_x = tst.st_weights(zw[:1], out_shape, in_shape)
+    live = (w_y[0] != 0).any(0)[:, None] & (w_x[0] != 0).any(0)[None, :]
+    return (tuple(live.nonzero()[len(live.nonzero()) // 2].tolist()),
+            tuple((~live).nonzero()[0].tolist()))
+
+
+NONFINITE_SHAPES = [  # input, output, window (sx, sy, tx, ty), paste?
+    ((50, 50), (20, 20), [0.3, 0.3, 0.2, 0.2], False),
+    ((20, 20), (50, 50), [0.5, 0.5, 0.9, 0.0], True),
+]
+NONFINITE_VALUES = [float("nan"), float("inf"), -float("inf")]
+
+
+def nonfinite_inputs(cuda, in_shape, out_shape, window, paste, value, live):
+    """Three examples on one window: example 0 holds ``value`` at a live
+    (or dead) input pixel, example 1 at the other kind, example 2 none."""
+    img, _ = inputs(3, in_shape, 15)
+    zw = torch.tensor([window] * 3, device=cuda)
+    if paste:
+        zw = tst.invert_where(zw).contiguous()
+    live_px, dead_px = tapped_pixels(zw, in_shape, out_shape)
+    img[(0,) + (live_px if live else dead_px)] = value
+    img[(1,) + (dead_px if live else live_px)] = value
+    return img, zw
+
+
+@pytest.mark.parametrize("mode", sorted(TOL))
+@pytest.mark.parametrize("live", [True, False], ids=["live", "dead"])
+@pytest.mark.parametrize("value", NONFINITE_VALUES, ids=["nan", "inf", "-inf"])
+@pytest.mark.parametrize("in_shape, out_shape, window, paste",
+                         NONFINITE_SHAPES, ids=["gather", "paste"])
+def test_forward_nonfinite_pixels_match_plain(cuda, in_shape, out_shape,
+                                              window, paste, value, live,
+                                              mode):
+    """A NaN or an infinity in the image gives the gather the plain
+    (dense) version's pattern of NaN and +-inf, at a pixel some output
+    taps and at one none does; the finite example keeps its bits."""
+    img, zw = nonfinite_inputs(cuda, in_shape, out_shape, window, paste,
+                               value, live)
+    out = st_kernel.st_gather_cuda(img, zw, out_shape, mode)
+    ref = st_kernel.st_gather_plain(img, zw, out_shape, mode)
+    assert_same_pattern(out[:2], ref[:2], TOL[mode])
+    assert not torch.isfinite(ref[:2]).all(1).all(1).any()
+    alone = st_kernel.st_gather_cuda(img[2:], zw[2:], out_shape, mode)
+    assert torch.equal(out[2:], alone)
+
+
+def test_forward_infinity_reaches_its_taps_only_as_infinity(cuda):
+    """One inf at a tapped pixel of a 50x50 -> 20x20 gather: inf at the
+    outputs that tap it, NaN at every other one, as the dense form."""
+    img, zw = nonfinite_inputs(cuda, (50, 50), (20, 20),
+                               [0.3, 0.3, 0.2, 0.2], False, float("inf"),
+                               True)
+    out = st_kernel.st_gather_cuda(img[:1], zw[:1], (20, 20))
+    ref = st_kernel.st_gather_plain(img[:1], zw[:1], (20, 20))
+    assert_same_pattern(out, ref)
+    n_inf = int(torch.isposinf(out).sum())
+    assert 1 <= n_inf <= 9 and int(torch.isnan(out).sum()) == 400 - n_inf
+
+
+@pytest.mark.parametrize("mode", sorted(TOL))
+@pytest.mark.parametrize("live", [True, False], ids=["live", "dead"])
+@pytest.mark.parametrize("value", NONFINITE_VALUES, ids=["nan", "inf", "-inf"])
+@pytest.mark.parametrize("in_shape, out_shape, window, paste",
+                         NONFINITE_SHAPES, ids=["gather", "paste"])
+def test_backward_nonfinite_image_matches_plain(cuda, in_shape, out_shape,
+                                                window, paste, value, live,
+                                                mode):
+    """A NaN or an infinity in the image gives g_zw the plain version's
+    pattern (g_img does not read the image: it stays finite), with and
+    without g_img; the finite example keeps its bits."""
+    img, zw = nonfinite_inputs(cuda, in_shape, out_shape, window, paste,
+                               value, live)
+    g = torch.randn((3,) + out_shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(16))
+    k = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape, mode)
+    p = st_kernel.st_gather_bwd_plain(img, zw, g, out_shape, mode)
+    assert_same_pattern(k[0], p[0])
+    assert_same_pattern(k[1], p[1], 1e-4)
+    assert not torch.isfinite(p[1][:2]).all()
+    none, z_only = st_kernel.st_gather_bwd_cuda(img, zw, g, out_shape, mode,
+                                                need_img=False)
+    assert none is None and torch.equal(
+        torch.isnan(z_only), torch.isnan(k[1]))
+    alone = st_kernel.st_gather_bwd_cuda(img[2:], zw[2:], g[2:], out_shape,
+                                         mode)
+    assert torch.equal(k[0][2:], alone[0]) and torch.equal(k[1][2:], alone[1])

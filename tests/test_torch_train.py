@@ -43,10 +43,13 @@ from attend_infer_repeat_tpu.train import step as jstep_mod
 from torch_parity import (
     FAST,
     TINY,
+    assert_bit_equal,
     binarized_presence,
+    eager_mode,
     forward_noise,
     images,
     to_numpy_tree,
+    uncaptured,
 )
 
 torch.set_num_threads(1)
@@ -507,21 +510,13 @@ def test_remat_rejects_an_unknown_policy():
 
 # -- the K-step chunk's replay logic, without the capture ---------------------
 
-def test_step_graph_logic_equals_eager_steps(setup, bank):
+def test_step_graph_logic_equals_eager_steps(setup, bank, uncaptured):
     """``StepGraph`` with its capture stubbed out (each "replay" runs the
     body it would capture, eagerly): the warm-up leaves the state as it
     was, the schedule table, the row index, the per-step seeds and the
     metric buffer give two chunks equal to six eager steps, bit for bit.
     (The capture itself needs the card: ``test_torch_graph_cuda.py``.)"""
     from attend_infer_repeat_torch.train.step import StepGraph, _TrainStep
-
-    class Uncaptured(StepGraph):
-        def _capture(self, state, capture):
-            self._state = state
-            return (0, 0)
-
-        def _launch(self):
-            self._body(self._state)
 
     base, _ = setup
     cfg = dataclasses.replace(base, train=dataclasses.replace(
@@ -530,12 +525,13 @@ def test_step_graph_logic_equals_eager_steps(setup, bank):
     eager = copy.deepcopy(state)
     ts = _TrainStep(cfg, state.model, digit_bank=bank)
     before = params_of(state)
-    graph = Uncaptured(ts, state, 3)
+    graph = StepGraph(ts, state, 3)
     assert state.step == 0 and all(
         torch.equal(v, before[k]) for k, v in params_of(state).items())
     chunks = [graph.replay(state)[1] for _ in range(2)]
     step = make_train_step(cfg, eager.model, digit_bank=bank)
-    rows = [step(eager)[1] for _ in range(6)]
+    with eager_mode():
+        rows = [step(eager)[1] for _ in range(6)]
     assert state.step == eager.step == 6
     assert state.opt_state["model"].count == eager.opt_state["model"].count
     for k, v in params_of(eager).items():
@@ -545,3 +541,66 @@ def test_step_graph_logic_equals_eager_steps(setup, bank):
             want = torch.stack([r[k] for r in rows[3 * c:3 * c + 3]])
             assert torch.equal(v, want), (c, k)
     assert len(set(chunks[1]["prior_success_prob"].tolist())) == 3
+
+
+# -- the single step as a graph, without the capture --------------------------
+
+@pytest.mark.parametrize("source", ["bank", "batch", "noise"])
+def test_graphed_single_step_equals_eager(setup, bank, uncaptured, source):
+    """``make_train_step``'s graphed path with its capture stubbed out, for
+    each data source (on-device synthesis, a caller's host batch, injected
+    noise on a bank batch): three steps equal three eager steps from the
+    same state bit for bit (parameters, optimizer state, every metric);
+    one graph serves all three; a step's metrics are copies that the next
+    step leaves alone."""
+    base, _ = setup
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, kl_warmup_steps=4, lr_decay_steps=5))
+    graphed = create_train_state(cfg, device="cpu")
+    eager = copy.deepcopy(graphed)
+    rng = np.random.default_rng(3)
+
+    def inputs(i):
+        batch = noise = None
+        if source == "batch":
+            batch = (images(cfg.train.batch_size, cfg.model.img_size,
+                            seed=20 + i),
+                     rng.integers(0, 3, cfg.train.batch_size).astype(
+                         np.int32))
+        if source == "noise":
+            noise = graphed.model.sample_noise(
+                cfg.train.batch_size, torch.Generator().manual_seed(40 + i))
+        return batch, noise
+
+    data = {} if source == "batch" else {"digit_bank": bank}
+    step = make_train_step(cfg, graphed.model, **data)
+    eager_step = make_train_step(cfg, eager.model, **data)
+    rows, returned = [], []
+    for i in range(3):
+        batch, noise = inputs(i)
+        graphed, m = step(graphed, batch, noise)
+        with eager_mode():
+            eager, want = eager_step(eager, batch, noise)
+        assert_bit_equal(m, want, f"step {i}")
+        rows.append(want)
+        returned.append(m)
+    for i, (m, want) in enumerate(zip(returned, rows)):
+        assert_bit_equal(m, want, f"step {i}'s metrics after the last step")
+    assert len(step.graphs) == 1 and graphed.step == eager.step == 3
+    assert_bit_equal(params_of(graphed), params_of(eager))
+    for g in graphed.opt_state:
+        assert graphed.opt_state[g].count == eager.opt_state[g].count
+        assert_bit_equal(graphed.opt_state[g].nu, eager.opt_state[g].nu)
+        assert_bit_equal(graphed.opt_state[g].trace, eager.opt_state[g].trace)
+
+
+def test_graphed_step_refuses_a_replaced_state(setup, bank, uncaptured):
+    """The graph holds the optimizer state's tensors: a state whose tensors
+    were replaced raises instead of training stale buffers."""
+    cfg, state = setup
+    step = make_train_step(cfg, state.model, digit_bank=bank)
+    state, _ = step(state)
+    state.opt_state["model"].nu = [t.clone()
+                                   for t in state.opt_state["model"].nu]
+    with pytest.raises(ValueError, match="captured"):
+        step(state)

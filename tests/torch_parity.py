@@ -13,6 +13,7 @@ from unittest import mock
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from attend_infer_repeat_torch import configs as tcfg
@@ -108,3 +109,66 @@ def generate_noise(jc, key, batch, success_prob):
     eps_where = jax.random.normal(k_where, (batch, jc.max_steps, d_where))
     return tuple(torch.from_numpy(np.array(a))
                  for a in (n, eps_what, eps_where))
+
+
+class UncapturedGraph:
+    """Stands in for ``utils.graphs.Graph`` on the CPU, which has no CUDA
+    graphs: the warm-up runs as on the card (``state`` put back after),
+    "capture" runs the body once (``state`` put back after) and keeps what
+    it returned as the static outputs, and each "replay" runs the body
+    eagerly and copies its
+    results into those same tensors, as a real replay rewrites them.  So
+    a caller that handed out the static outputs without copying them
+    would see them change, as it would on the card."""
+
+    @staticmethod
+    def install(monkeypatch):
+        from attend_infer_repeat_torch.utils import debug, graphs
+
+        class Uncaptured(graphs.Graph):
+            def _capture(self, body, capture, generators):
+                # a capture executes nothing: the state is put back
+                self._body = body
+                with torch.no_grad():
+                    saved = [t.clone() for t in self.state]
+                out = body()
+                with torch.no_grad():
+                    for t, v in zip(self.state, saved):
+                        t.copy_(v)
+                return out
+
+            def _replay(self):
+                fresh = self._body()
+                for s, v in zip(graphs.leaves(self.out),
+                                graphs.leaves(fresh)):
+                    s.copy_(v)
+
+        # the graphed path on the CPU; debug_mode still selects the eager one
+        monkeypatch.setattr(graphs, "eager", lambda device: debug.active())
+        monkeypatch.setattr(graphs, "Graph", Uncaptured)
+
+
+@pytest.fixture
+def uncaptured(monkeypatch):
+    """The entry points take their graphed path on the CPU, with the
+    capture stubbed out (``UncapturedGraph``); inside
+    ``utils.debug_mode`` they run eagerly as ever."""
+    UncapturedGraph.install(monkeypatch)
+
+
+def eager_mode():
+    """``utils.debug_mode`` without the NaN trap: the eager path."""
+    from attend_infer_repeat_torch.utils import debug_mode
+
+    return debug_mode(nans=False)
+
+
+def assert_bit_equal(got, want, what=""):
+    """Two nests of tensors (tuples, lists, dicts, dataclasses) equal bit
+    for bit, leaf by leaf."""
+    from attend_infer_repeat_torch.utils import graphs
+
+    a, b = graphs.leaves(got), graphs.leaves(want)
+    assert len(a) == len(b), what
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert x.dtype == y.dtype and torch.equal(x, y), (what, i)
