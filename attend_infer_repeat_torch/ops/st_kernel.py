@@ -15,11 +15,12 @@ einsums with materialized hat weights), used for CPU tensors and as the
 kernels' yardsticks on the card.  ``STGather`` is the autograd glue: its
 forward and backward take the kernel for CUDA tensors and the plain
 version for CPU tensors.  ``launches`` and ``bwd_launches`` count kernel
-launches, and nothing else.
+launches, and nothing else; ``shape_launches`` counts them by shape.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -48,6 +49,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launches = 0
 #: Number of backward kernel launches since the count was last set to 0.
 bwd_launches = 0
+#: Launches of either kernel by ``(kernel, N, H, W, h, w)``, ``kernel``
+#: "st_gather" or "st_gather_bwd", since the counter was last cleared.
+shape_launches: collections.Counter = collections.Counter()
 _lib = None
 
 
@@ -151,6 +155,7 @@ def st_gather_cuda(img: torch.Tensor, zw: torch.Tensor, out_shape,
     if err:
         raise RuntimeError(f"st_gather kernel launch failed: CUDA error {err}")
     launches += 1
+    shape_launches["st_gather", n, in_h, in_w, out_h, out_w] += 1
     return out
 
 
@@ -208,6 +213,7 @@ def st_gather_bwd_cuda(img: torch.Tensor, zw: torch.Tensor, g: torch.Tensor,
         raise RuntimeError(f"st_gather_bwd kernel launch failed: CUDA error "
                            f"{err}")
     bwd_launches += 1
+    shape_launches["st_gather_bwd", n, in_h, in_w, out_h, out_w] += 1
     return g_img, g_zw
 
 

@@ -393,6 +393,7 @@ def make_scan_train_step(config: Config, model: AIRModel, digit_bank,
     ``utils.debug_mode`` (the counterpart of ``jax_disable_jit``) and
     with a ``mesh`` (the collectives are not captured).  Needs an
     on-device data source (``digit_bank`` or ``device_data``).
+    ``scan.graphs`` holds the ``StepGraph`` once captured, under K.
     """
     if digit_bank is None and device_data is None:
         raise ValueError("the K-step loop needs an on-device data source "
@@ -413,8 +414,10 @@ def make_scan_train_step(config: Config, model: AIRModel, digit_bank,
         ts.check(state)
         if graphed is None:
             graphed = StepGraph(ts, state, k_steps)
+            scan.graphs = {k_steps: graphed}
         return graphed.replay(state)
 
+    scan.graphs = {}
     return scan
 
 

@@ -35,6 +35,7 @@ train step keeps generators registered with its graphs.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -87,17 +88,25 @@ def no_host_sync():
         torch.cuda.set_sync_debug_mode(prev)
 
 
-def _launch_counts():
+def _launch_counts() -> tuple:
+    """The kernels' launch counts: forward, backward, and by shape."""
     from attend_infer_repeat_torch.ops import st_kernel
 
-    return st_kernel.launches, st_kernel.bwd_launches
+    return (st_kernel.launches, st_kernel.bwd_launches,
+            collections.Counter(st_kernel.shape_launches))
 
 
-def _add_launches(forward: int, backward: int) -> None:
+def _add_launches(counts: tuple, sign: int = 1) -> None:
+    """Add ``counts`` (as ``_launch_counts`` gives them) to the kernels'
+    launch counts, or take them away (``sign=-1``)."""
     from attend_infer_repeat_torch.ops import st_kernel
 
-    st_kernel.launches += forward
-    st_kernel.bwd_launches += backward
+    st_kernel.launches += sign * counts[0]
+    st_kernel.bwd_launches += sign * counts[1]
+    if sign > 0:
+        st_kernel.shape_launches.update(counts[2])
+    else:
+        st_kernel.shape_launches.subtract(counts[2])
 
 
 class Graph:
@@ -133,8 +142,10 @@ class Graph:
             self.out = self._capture(body, capture, generators)
         finally:
             after = _launch_counts()
-            _add_launches(counts[0] - after[0], counts[1] - after[1])
-        self.per_replay = (after[0] - counts[0], after[1] - counts[1])
+            captured = (after[0] - counts[0], after[1] - counts[1],
+                        after[2] - counts[2])
+            _add_launches(captured, sign=-1)
+        self.per_replay = captured
         self.pool_bytes = self._reserved() - reserved
 
     def _reserved(self) -> int:
@@ -187,7 +198,7 @@ class Graph:
     def launch(self):
         """Replay once; returns ``out``."""
         self._replay()
-        _add_launches(*self.per_replay)
+        _add_launches(self.per_replay)
         return self.out
 
 

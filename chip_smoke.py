@@ -69,15 +69,38 @@ Phases, in order (any failure raises and exits non-zero):
 7c. ``utils.trace`` around a graphed chunk writes a trace that holds the
    replayed kernels, and ``utils.debug_mode`` traps a NaN injected into
    a train step's batch;
-8. a ``kernels`` JSON line, then the last line
+8. every other training preset (``PRESET_LAUNCHES``: ``crowded``,
+   ``iwae_trained``, ``iwae``, ``canonical_uniform``,
+   ``canonical_uniform28``, ``single_digit``, ``canonical``, ``no_nvil``)
+   at its own batch, widths, canvas and dtype mix, from
+   ``create_train_state``: K = 4 steps through its captured chunk (its
+   single-step graph for ``no_nvil``, which has no ``scan_steps``) and
+   the same steps eager (``utils.debug_mode``) from one state, twice,
+   bit-equal in parameters, optimizer state, metric rows, step and
+   counts; launches per step held to what the code gives; the log
+   point's graphs (synthesis, eval, IWAE where the preset logs it)
+   against eager; step walls, peak memory and graph pools; then
+   ``train()`` on ``crowded`` with its cap switching on at step K,
+   graphed against eager, bit-equal; the phase's launches by shape
+   (``st_kernel.shape_launches``);
+8b. both kernels on one ``crowded`` step's own inputs (the 5 gathers
+   100×100→20×20, the 5 pastes 20×20→100×100, the synthesis paste
+   16×16→100×100 at N = 5×1024, their backwards), against plain and
+   timed, as phase 5b; each of those shapes must have been launched in
+   phase 8;
+9. a ``kernels`` JSON line (with phase 8's launches by shape), then the
+   last line
    ``{"ok": true, "device": {...}}``.
 
 Phases 3 and 3b include the ``crowded`` preset's 100×100 canvas, and a
 NaN and an infinity in the image and the cotangent against the plain
 versions' pattern.  The ``kernels`` line counts every launch of the main
-paths (phases 4, 5, 5c, 5d, 7 and 7b): eager launches, and for a
-replayed graph the launches of one captured run times its replays.  Imports nothing of JAX.  Needs one card; stops no process it did not start (it
-starts ``nvidia-smi``, ``nvcc`` and the CLI run, and waits for each).
+paths (phases 4, 5, 5c, 5d, 7, 7b and 8): eager launches, and for a
+replayed graph the launches of one captured run times its replays; the
+``crowded`` step rows carry the number of ``crowded`` steps of phase 8,
+each of which launched each of them once.  Imports nothing of JAX.
+Needs one card; stops no process it did not start (it starts
+``nvidia-smi``, ``nvcc`` and the CLI run, and waits for each).
 """
 
 from __future__ import annotations
@@ -920,11 +943,12 @@ def rows_of(rows):
     return {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
 
 
-def step_kernel_phase(st_kernel, state, step, bw, f32_peak):
+def step_kernel_phase(st_kernel, state, step, bw, f32_peak, label="step"):
     """One more train step with every kernel call's inputs recorded, then
     each kernel against plain and timed on exactly those inputs: the
     windows, images and cotangents that the step really gives them.
-    Returns the forward and backward rows, in the order of the calls."""
+    Returns the forward and backward rows, in the order of the calls,
+    each named after ``label``."""
     from attend_infer_repeat_torch.utils import debug_mode
 
     calls = []
@@ -954,11 +978,13 @@ def step_kernel_phase(st_kernel, state, step, bw, f32_peak):
         n, h, w = img.shape
         what = {(16, 16): "synth paste", (20, 20): "paste"}.get((h, w),
                                                                 "gather")
-        name = (f"step {what}{' bwd' if kind == 'bwd' else ''} "
+        name = (f"{label} {what}{' bwd' if kind == 'bwd' else ''} "
                 f"{h}x{w}->{out_shape[0]}x{out_shape[1]}"
                 f"{'' if need_img is not False else ', g_zw only'} "
                 f"#{len(rows[kind]) + 1}")
-        row = {"case": name, "n": n}
+        row = {"case": name, "n": n,
+               "key": ("st_gather" if kind == "fwd" else "st_gather_bwd",
+                       n, h, w, *out_shape)}
         if kind == "fwd":
             msg = check_gather(st_kernel, row, img, zw, out_shape)
             msg += "; " + time_gather(st_kernel, row, img, zw, out_shape, bw,
@@ -969,9 +995,9 @@ def step_kernel_phase(st_kernel, state, step, bw, f32_peak):
                                           out_shape, need_img, bw, f32_peak)
         print(msg, flush=True)
         rows[kind].append(row)
-    for kind, label in (("fwd", "forward"), ("bwd", "backward")):
+    for kind, kind_label in (("fwd", "forward"), ("bwd", "backward")):
         rs = rows[kind]
-        print(f"  the step's {len(rs)} {label} launches: kernel "
+        print(f"  the {label}'s {len(rs)} {kind_label} launches: kernel "
               f"{sum(r['ms'] for r in rs) * 1e3:.2f} us, bound "
               f"{sum(r['bound_ms'] for r in rs) * 1e3:.2f} us, plain "
               f"{sum(r['plain_ms'] for r in rs) * 1e3:.2f} us, library "
@@ -1249,6 +1275,44 @@ def graph_phase(air, st_kernel, smi, bank):
     return counts, walls
 
 
+def versus(name, fn, args, seed, batch, smi, cache=None, reps=3):
+    """``fn(*args, generator)``: the graph's first call (the capture), then
+    ``reps`` graphed and ``reps`` eager calls, timed; the first graphed and
+    eager calls from generators in one state must give bit-equal results
+    and leave the generators in one state.  ``cache``: the graphs ``fn``
+    replays (``fn.graphs`` by default).  Returns the graphed result."""
+    from attend_infer_repeat_torch.utils import debug_mode, graphs
+
+    gens = [torch.Generator("cuda").manual_seed(seed) for _ in range(2)]
+    got = fn(*args, gens[0])
+    with debug_mode(nans=False):
+        want = fn(*args, gens[1])
+    a, b = graphs.leaves(got), graphs.leaves(want)
+    if not (len(a) == len(b) and all(x.dtype == y.dtype
+                                     and torch.equal(x, y)
+                                     for x, y in zip(a, b))):
+        raise AssertionError(f"{name}: graphed and eager results differ")
+    if not torch.equal(gens[0].get_state(), gens[1].get_state()):
+        raise AssertionError(f"{name}: the generators differ after")
+    walls = {"graphed": [], "eager": []}
+    for mode in walls:
+        with debug_mode(nans=False) if mode == "eager" \
+                else contextlib.nullcontext():
+            for r in range(reps):
+                g = torch.Generator("cuda").manual_seed(seed + 1 + r)
+                walls[mode].append(timed(fn, *args, g)[1])
+    ms = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+    cache = fn.graphs if cache is None else cache
+    pool = sum(e.graph.pool_bytes for e in cache.values())
+    print(f"  {name}: graphed and eager bit-equal, generator left in one "
+          f"state; wall graphed {ms['graphed']:.3f} ms "
+          f"({batch / ms['graphed'] * 1e3:.1f} img/s), eager "
+          f"{ms['eager']:.3f} ms ({batch / ms['eager'] * 1e3:.1f} img/s), "
+          f"{ms['eager'] / ms['graphed']:.2f}x (medians of {reps}); "
+          f"graph pool {pool / 2**20:.1f} MiB; {smi}", flush=True)
+    return got
+
+
 def entry_points_phase(air, st_kernel, smi, bank):
     """The JAX package's other jitted entry points as CUDA graphs, each
     against its eager call (``debug_mode``) at full width, from one
@@ -1262,75 +1326,42 @@ def entry_points_phase(air, st_kernel, smi, bank):
     from attend_infer_repeat_torch.eval import make_iwae_eval_step
     from attend_infer_repeat_torch.serving import (
         make_generate_fn, make_infer_fn)
-    from attend_infer_repeat_torch.utils import debug_mode, graphs
+    from attend_infer_repeat_torch.utils import debug_mode
 
     serving = air.get_config("serving")
     fast = air.get_config("canonical_fast")
     st_kernel.launches = st_kernel.bwd_launches = 0
     reps = 3
 
-    def versus(name, fn, args, seed, batch, cache=None):
-        """``fn(*args, generator)``: the graph's first call (the capture),
-        then ``reps`` graphed and ``reps`` eager calls, timed; the first
-        graphed and eager calls from generators in one state.  ``cache``:
-        the graphs ``fn`` replays (``fn.graphs`` by default)."""
-        gens = [torch.Generator("cuda").manual_seed(seed) for _ in range(2)]
-        got = fn(*args, gens[0])
-        with debug_mode(nans=False):
-            want = fn(*args, gens[1])
-        a, b = graphs.leaves(got), graphs.leaves(want)
-        if not (len(a) == len(b) and all(x.dtype == y.dtype
-                                         and torch.equal(x, y)
-                                         for x, y in zip(a, b))):
-            raise AssertionError(f"{name}: graphed and eager results differ")
-        if not torch.equal(gens[0].get_state(), gens[1].get_state()):
-            raise AssertionError(f"{name}: the generators differ after")
-        walls = {"graphed": [], "eager": []}
-        for mode in walls:
-            with debug_mode(nans=False) if mode == "eager" \
-                    else contextlib.nullcontext():
-                for r in range(reps):
-                    g = torch.Generator("cuda").manual_seed(seed + 1 + r)
-                    walls[mode].append(timed(fn, *args, g)[1])
-        ms = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
-        cache = fn.graphs if cache is None else cache
-        pool = sum(e.graph.pool_bytes for e in cache.values())
-        print(f"  {name}: graphed and eager bit-equal, generator left in one "
-              f"state; wall graphed {ms['graphed']:.3f} ms "
-              f"({batch / ms['graphed'] * 1e3:.1f} img/s), eager "
-              f"{ms['eager']:.3f} ms ({batch / ms['eager'] * 1e3:.1f} img/s), "
-              f"{ms['eager'] / ms['graphed']:.2f}x (medians of {reps}); "
-              f"graph pool {pool / 2**20:.1f} MiB; {smi}", flush=True)
-        return got
-
     imgs, _ = make_synth_fn(serving.data, bank)(
         N_SERVE, torch.Generator("cuda").manual_seed(7))
     model = air.AIRModel(serving.model, use_baseline=False, seed=0)
     model_fast = air.AIRModel(fast.model, use_baseline=False, seed=1)
     versus(f"infer, serving, batch {N_SERVE}", make_infer_fn(serving, model),
-           (imgs,), 10, N_SERVE)
+           (imgs,), 10, N_SERVE, smi)
     versus(f"infer, canonical_fast model, batch {N_SERVE}",
-           make_infer_fn(fast, model_fast), (imgs,), 11, N_SERVE)
+           make_infer_fn(fast, model_fast), (imgs,), 11, N_SERVE, smi)
     wide = torch.cat([imgs, torch.flip(imgs, dims=[2])], 0)
     versus(f"tiled infer, batch {2 * N_SERVE}, tile {N_SERVE}",
            make_infer_fn(serving, model, tile=N_SERVE), (wide,), 12,
-           2 * N_SERVE)
+           2 * N_SERVE, smi)
     versus(f"generate, batch {N_SERVE}", make_generate_fn(serving, model),
-           (N_SERVE,), 13, N_SERVE)
+           (N_SERVE,), 13, N_SERVE, smi)
     del wide, model, model_fast
 
     state = air.create_train_state(fast, seed=11)
     synth = make_synth_fn(fast.data, bank)
     imgs, nums = versus(f"synthesis, batch {N_TRAIN}", synth, (N_TRAIN,), 14,
-                        N_TRAIN)
+                        N_TRAIN, smi)
     eval_step = air.make_eval_step(fast, state.model)
     versus(f"eval step, batch {N_TRAIN}",
-           lambda g: eval_step(state, imgs, nums, g), (), 15, N_TRAIN,
+           lambda g: eval_step(state, imgs, nums, g), (), 15, N_TRAIN, smi,
            eval_step.graphs)
     iwae = make_iwae_eval_step(fast, state.model.with_config(
         dataclasses.replace(fast.model, explore_eps=None)), 5)
     versus(f"IWAE step, 5 particles, batch {N_TRAIN}",
-           lambda g: iwae(state, imgs, g), (), 16, N_TRAIN, iwae.graphs)
+           lambda g: iwae(state, imgs, g), (), 16, N_TRAIN, smi,
+           iwae.graphs)
 
     graphed = air.create_train_state(fast, seed=12)
     eager = air.create_train_state(fast, seed=12)
@@ -1472,6 +1503,197 @@ def utils_phase(air, bank):
         raise AssertionError("debug_mode did not trap the injected NaN")
 
 
+# Phase 8: every training preset but canonical_fast (phases 5-7), each at
+# its own batch, widths, canvas and dtype mix, K steps a chunk.
+PRESET_K = 4
+# Launches per train step (forward, backward), as the code gives them: one
+# synthesis paste, then a gather and a paste per cell step, for each
+# particle of the VIMCO objective; remat save_st recomputes no kernel (no
+# preset uses remat "full", which would run each gather and paste again).
+# tests/test_torch_train.py holds the CPU step's kernel calls to the same.
+PRESET_LAUNCHES = {"crowded": (11, 10), "iwae_trained": (31, 30),
+                   "iwae": (7, 6), "canonical_uniform": (7, 6),
+                   "canonical_uniform28": (7, 6), "single_digit": (3, 2),
+                   "canonical": (7, 6), "no_nvil": (7, 6)}
+
+
+def preset_chunk(air, cfg, model, bank, k):
+    """``chunk(state) -> (state, rows)``: K steps as the preset trains
+    them, its captured chunk, or K single steps of the single-step graph
+    where the preset has no ``scan_steps`` (``no_nvil``); ``chunk.graphs``
+    holds its graphs once captured."""
+    if cfg.train.scan_steps > 1:
+        return air.make_scan_train_step(cfg, model, bank, k)
+    step = air.make_train_step(cfg, model, digit_bank=bank)
+
+    def chunk(state):
+        rows = []
+        for _ in range(k):
+            state, m = step(state)
+            rows.append(m)
+        return state, rows_of(rows)
+    chunk.graphs = step.graphs
+    return chunk
+
+
+def bit_equal(what, a, b, got, want):
+    """Two ``TrainState``s and their metric rows equal bit for bit, with
+    the same step and update counts (the step's generators are seeded
+    from those); raises with the largest gap otherwise."""
+    n_differ, worst, err = state_gap(a, b)
+    rows = rows_gap(got, want)
+    counts = [(s.step, [s.opt_state[g].count for g in s.opt_state])
+              for s in (a, b)]
+    if n_differ or any(rows.values()) or counts[0] != counts[1]:
+        raise AssertionError(
+            f"{what}: {n_differ} tensors differ (worst {worst}: rel L2 "
+            f"{err:.3g}), metric rows up to {max(rows.values()):.3g} rel, "
+            f"step and counts {counts}")
+
+
+def preset_phase(air, st_kernel, smi):
+    """Each preset of ``PRESET_LAUNCHES`` at full width: K graphed steps
+    (its chunk, or its single step) against the same K steps eager from
+    one state, twice, bit-equal in state and metric rows; its launches per
+    step; the log point's graphs (synthesis, eval, and IWAE where the
+    preset logs it) against eager; walls, peak memory and graph pools.
+    Then ``crowded``'s cap switch inside a chunk pair of ``train()``,
+    graphed against eager.  Returns the launch counts of that run, its
+    launches by shape (``st_kernel.shape_launches``), and a ``crowded``
+    state and its single step for phase 8b."""
+    from attend_infer_repeat_torch.data import load_digit_bank, make_synth_fn
+    from attend_infer_repeat_torch.eval import make_iwae_eval_step
+    from attend_infer_repeat_torch.utils import debug_mode
+    from attend_infer_repeat_torch.utils.graphs import WARMUP
+
+    k = PRESET_K
+    st_kernel.launches = st_kernel.bwd_launches = 0
+    st_kernel.shape_launches.clear()
+    kept = None
+    for i, name in enumerate(PRESET_LAUNCHES):
+        cfg = air.get_config(name)
+        per_step = PRESET_LAUNCHES[name]
+        bank, _ = load_digit_bank(cfg.data.source, cfg.data.digit_size)
+        batch = cfg.train.batch_size
+        graphed = air.create_train_state(cfg, seed=40 + i)
+        eager = air.create_train_state(cfg, seed=40 + i)
+        chunk = preset_chunk(air, cfg, graphed.model, bank, k)
+        eager_chunk = preset_chunk(air, cfg, eager.model, bank, k)
+        start = (st_kernel.launches, st_kernel.bwd_launches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = {"graphed": [], "eager": []}
+        for c in range(2):
+            (graphed, got), dt = timed(chunk, graphed)
+            walls["graphed"].append(dt / k)
+            if c == 0:
+                peak = torch.cuda.max_memory_allocated()
+            with debug_mode(nans=False):
+                (eager, want), dt = timed(eager_chunk, eager)
+            walls["eager"].append(dt / k)
+            bit_equal(f"{name} chunk {c}", graphed, eager, got, want)
+            check_metrics(got, f"{name} chunk {c}")
+        counts = (st_kernel.launches - start[0],
+                  st_kernel.bwd_launches - start[1])
+        steps = WARMUP + 4 * k          # warm-ups, 2K replays, 2K eager
+        if counts != (steps * per_step[0], steps * per_step[1]):
+            raise AssertionError(f"{name}: launches {counts}, expected "
+                                 f"{per_step} a step over {steps} steps")
+        pool = sum(e.graph.pool_bytes for e in chunk.graphs.values())
+        what = ("its single step" if cfg.train.scan_steps <= 1
+                else f"its chunk of {k}")
+        print(f"  {name} (batch {batch}, {cfg.model.img_size[0]}x"
+              f"{cfg.model.img_size[1]}, {cfg.model.max_steps} steps, "
+              f"{cfg.model.dtype}, remat "
+              f"{cfg.model.remat_policy if cfg.model.remat else 'off'}, "
+              f"objective {cfg.train.objective}): {2 * k} steps through "
+              f"{what} graphed and eager bit-equal (parameters, optimizer "
+              f"state, {k} rows of {len(got)} metrics, step and counts); "
+              f"{per_step[0]} forward and {per_step[1]} backward launches "
+              f"a step; step wall graphed {walls['graphed'][1] * 1e3:.3f} ms"
+              f" ({batch / walls['graphed'][1]:.1f} train img/s; the first "
+              f"call, capture included, {walls['graphed'][0] * 1e3:.3f} ms a"
+              f" step), eager {walls['eager'][1] * 1e3:.3f} ms "
+              f"({walls['eager'][1] / walls['graphed'][1]:.2f}x); peak "
+              f"memory {peak / 2**30:.2f} GiB; graph pool "
+              f"{pool / 2**20:.1f} MiB; {smi}", flush=True)
+
+        synth = make_synth_fn(cfg.data, bank)
+        imgs, nums = versus(f"{name}: synthesis, batch {batch}", synth,
+                            (batch,), 60 + i, batch, smi, reps=1)
+        eval_step = air.make_eval_step(cfg, graphed.model)
+        versus(f"{name}: eval step, batch {batch}",
+               lambda g: eval_step(graphed, imgs, nums, g), (), 70 + i,
+               batch, smi, eval_step.graphs, reps=1)
+        if cfg.train.iwae_eval_particles:
+            n = cfg.train.iwae_eval_particles
+            iwae = make_iwae_eval_step(cfg, graphed.model.with_config(
+                dataclasses.replace(cfg.model, explore_eps=None)), n)
+            versus(f"{name}: IWAE step, {n} particles, batch {batch}",
+                   lambda g: iwae(graphed, imgs, g), (), 80 + i, batch, smi,
+                   iwae.graphs, reps=1)
+            del iwae
+        if name == "crowded":
+            kept = (eager, air.make_train_step(cfg, eager.model,
+                                               digit_bank=bank))
+        del graphed, eager, chunk, eager_chunk, eval_step, synth
+        torch.cuda.empty_cache()
+
+    cap_switch_phase(air, st_kernel)
+    shapes = +st_kernel.shape_launches
+    for key, n in sorted(shapes.items()):
+        kernel, n_ex, in_h, in_w, out_h, out_w = key
+        print(f"  {kernel} {in_h}x{in_w}->{out_h}x{out_w}, N={n_ex}: {n} "
+              f"launches in this phase", flush=True)
+    return (st_kernel.launches, st_kernel.bwd_launches), shapes, kept
+
+
+def cap_switch_phase(air, st_kernel):
+    """``train()`` on ``crowded`` with its window cap switching on at step
+    K (``max_scale_from_step``; the preset's is 30,000): a chunk of the
+    capless twin, then one of the capped model over the same parameters,
+    each its own graph, against the same run eager."""
+    from attend_infer_repeat_torch.utils import debug_mode
+    from attend_infer_repeat_torch.utils.graphs import WARMUP
+
+    k = PRESET_K
+    crowded = air.get_config("crowded")
+    cfg = dataclasses.replace(
+        crowded,
+        model=dataclasses.replace(crowded.model, max_scale_from_step=k),
+        train=dataclasses.replace(
+            crowded.train, n_iters=2 * k, scan_steps=k, log_every=k,
+            save_every=k, fig_every=2 * k, eval_batches=1))
+    kw = dict(use_tensorboard=False, save_checkpoints=False)
+    before = st_kernel.bwd_launches
+    with tempfile.TemporaryDirectory(prefix="air_cap_") as tmp:
+        graphed, dt = timed(air.train, cfg, workdir=os.path.join(tmp, "g"),
+                            **kw)
+        with debug_mode(nans=False):
+            eager, dt_eager = timed(air.train, cfg,
+                                    workdir=os.path.join(tmp, "e"), **kw)
+        rows = [[{k_: v for k_, v in r.items() if k_ != "wall_s"}
+                 for r in loop_rows(os.path.join(tmp, d))] for d in "ge"]
+    a, b = state_arrays(graphed), state_arrays(eager)
+    differ = [n for n in a if not torch.equal(a[n], b[n])]
+    if differ or {graphed.step, eager.step} != {2 * k} or rows[0] != rows[1]:
+        raise AssertionError(f"crowded across the cap switch: graphed and "
+                             f"eager differ in {differ[:5]} or the JSONL "
+                             f"rows")
+    steps = 2 * (WARMUP + k) + 2 * k      # a graph per phase, then eager
+    bwd = st_kernel.bwd_launches - before
+    if bwd != PRESET_LAUNCHES["crowded"][1] * steps:
+        raise AssertionError(f"crowded across the cap switch: {bwd} "
+                             f"backward launches over {steps} steps")
+    print(f"  crowded across its cap switch (train() to step {2 * k}, the "
+          f"cap {cfg.model.max_scale} from step {k}): a chunk of the capless "
+          f"twin and one of "
+          f"the capped model, each its own graph, bit-equal to the eager "
+          f"run (parameters, optimizer state, {len(rows[0])} JSONL rows); "
+          f"{bwd} backward launches; wall {dt:.2f} s graphed, "
+          f"{dt_eager:.2f} s eager", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1544,7 +1766,27 @@ def main() -> int:
     print("[7c] utils: a trace of a graphed chunk, the NaN trap", flush=True)
     utils_phase(air, bank)
 
+    print(f"[8] every other training preset at full width: K = {PRESET_K} "
+          f"steps graphed against eager", flush=True)
+    (preset_launches, preset_bwd_launches), preset_shapes, (
+        crowded, crowded_step) = preset_phase(air, st_kernel, smi)
+
+    print("[8b] both kernels on one crowded train step's own inputs",
+          flush=True)
+    crowded_rows, crowded_bwd_rows = step_kernel_phase(
+        st_kernel, crowded, crowded_step, bw, f32_peak, label="crowded step")
+    del crowded, crowded_step
+    missing = {r["key"] for r in crowded_rows + crowded_bwd_rows
+               if not preset_shapes[r["key"]]}
+    if missing:
+        raise AssertionError(f"phase 8 launched no kernel at crowded's step "
+                             f"shapes {sorted(missing)}")
+
     def kernel_line(name, source, replaces, launches, rows, head_case):
+        # the launches of phase 8 by shape: every preset's, crowded's too
+        by_shape = [{"shape": f"{h}x{w}->{oh}x{ow}", "n": n, "launches": c}
+                    for (k, n, h, w, oh, ow), c in sorted(
+                        preset_shapes.items()) if k == name]
         timed = [r for r in rows if "ms" in r]
         head = next(r for r in timed if head_case(r["case"], r["n"]))
         keys = ("case", "n", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1561,21 +1803,24 @@ def main() -> int:
             "library_ms": head["library_ms"],
             "shape": f"{head['case']} N={head['n']}",
             "shapes": [{k: r[k] for k in keys} for r in timed],
+            "preset_launches_by_shape": by_shape,
         }
 
     kernels = [
         kernel_line("st_gather", "st_gather.cu", 54,
                     launches + train_launches + graph_launches
-                    + entry_launches + loop_launches + mesh_launches,
-                    rows + step_rows,
+                    + entry_launches + loop_launches + mesh_launches
+                    + preset_launches,
+                    rows + step_rows + crowded_rows,
                     lambda c, n: (c, n) == ("gather 50x50->20x20", N_SERVE)),
         kernel_line("st_gather_bwd", "st_gather_bwd.cu", 155,
                     bwd_launches + graph_bwd_launches + entry_bwd_launches
-                    + loop_bwd_launches + mesh_bwd_launches,
-                    bwd_rows + step_bwd_rows,
+                    + loop_bwd_launches + mesh_bwd_launches
+                    + preset_bwd_launches,
+                    bwd_rows + step_bwd_rows + crowded_bwd_rows,
                     lambda c, n: c.startswith("step paste bwd")),
     ]
-    print("[8] kernels", flush=True)
+    print("[9] kernels", flush=True)
     print(f"  total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -127,9 +127,9 @@ TRAIN = dict(batch_size=BATCH, learning_rate=1e-3, lr_decay_steps=10,
              kl_warmup_steps=2, l2_weight=1e-4)
 PRIOR = dict(anneal_start=1, anneal_steps=4)
 DATA = dict(canvas_size=(24, 24), digit_size=(8, 8))
-# name: (model switches, free-running, tolerances).  Gradients are held
-# by relative L2 per tensor, at step 0 and at later steps.
-# Free-running: the port follows its own trajectory for STEPS steps.
+# name: (model switches, free-running, tolerances, train switches).
+# Gradients are held by relative L2 per tensor, at step 0 and at later
+# steps.  Free-running: the port follows its own trajectory for STEPS steps.
 # RMSProp's first updates normalise each gradient element, so roundoff in a
 # near-zero element becomes an O(lr) parameter difference, and with the f32
 # model the gradient gap grows from ~3e-6 at step 0 to ~5e-4 at step 3
@@ -142,15 +142,47 @@ DATA = dict(canvas_size=(24, 24), digit_size=(8, 8))
 # differ more, up to 0.10 in the where head's gradients (measured): the
 # where prior's scale of 0.03 multiplies rounding in the window by ~1/0.03²
 # in the where KL.
+# The other presets' switches, in f32 (measured on the CPU, limits about
+# twice that):
+# - crowded's model (5 steps, the where prior's loc 0.16, the cap at 0.30),
+#   free-running: step 0's gradients 4.4e-6 apart; by step 2 2.7e-3 (the
+#   decoder's bias), metrics 7.4e-5 (kl_where), parameters 0.048 of an
+#   update, as the f32 model's trajectory parts above;
+# - no_nvil's step without a baseline, free-running: gradients 2.9e-6 and
+#   6.7e-6, metrics 2.5e-6, parameters 0.01 of an update;
+# - iwae_trained's VIMCO objective over 3 particles, each particle's draws
+#   regenerated from the JAX key split.  One particle carries nearly all
+#   the weight (log-weights hundreds of nats apart), so the free trajectory
+#   parts at once (0.048 in the gradients by step 2): each step starts from
+#   the JAX step's parameters, as canonical_fast does.  Gradients 1.8e-5 at
+#   step 0 and 1.2e-4 later, metrics 1.05e-5 (grad_norm), loss 2.8e-7, the
+#   first update 2.5e-4.
+CROWDED = dict(FAST, dtype="float32", decoder_dtype=None,
+               canvas_carry_dtype=None, max_steps=5,
+               where_prior_loc=(0.16, 0.16, 0.0, 0.0), max_scale=0.30)
+NO_NVIL = dict(FAST, dtype="float32", decoder_dtype=None,
+               canvas_carry_dtype=None)
 CASES = {
     "f32_baseline": ({}, True, dict(grad=(1e-4, 2e-3), loss=2e-5,
-                                    metric=1e-4, param=0.1)),
+                                    metric=1e-4, param=0.1), {}),
     "fast_switches_f32": (dict(FAST, dtype="float32",
                                canvas_carry_dtype=None), True,
                           dict(grad=(1e-4, 1e-4), loss=1e-5, metric=1e-5,
-                               param=0.05)),
+                               param=0.05), {}),
     "canonical_fast": (FAST, False, dict(grad=(2e-2, 0.15), loss=5e-3,
-                                         metric=2e-2, update=0.15)),
+                                         metric=2e-2, update=0.15), {}),
+    "crowded_switches_f32": (CROWDED, True,
+                             dict(grad=(1e-5, 5e-3), loss=5e-6, metric=2e-4,
+                                  param=0.1), {}),
+    "no_nvil": (NO_NVIL, True,
+                dict(grad=(1e-5, 2e-5), loss=1e-6, metric=1e-5, param=0.03),
+                dict(use_baseline=False)),
+    "iwae_trained_vimco_f32": (dict(FAST, dtype="float32",
+                                    canvas_carry_dtype=None), False,
+                               dict(grad=(5e-5, 3e-4), loss=1e-6,
+                                    metric=3e-5, update=1e-3),
+                               dict(objective="iwae", iwae_particles=3,
+                                    use_baseline=False)),
 }
 
 
@@ -175,9 +207,9 @@ def batch(step):
 def jax_run(request):
     """The JAX step's trajectory over STEPS steps: per step the loss,
     metrics, gradients (as the port's state_dict) and updated params."""
-    switches, free, tol = CASES[request.param]
-    jc, tc = configs(switches)
-    jm = JaxAIR(jc.model, use_baseline=True)
+    switches, free, tol, train = CASES[request.param]
+    jc, tc = configs(switches, **train)
+    jm = JaxAIR(jc.model, use_baseline=jc.train.use_baseline)
     imgs0, _ = batch(0)
     state = jstate_mod.create_train_state(jc, jm, jnp.asarray(imgs0), seed=0)
     init = params_from_flax(to_numpy_tree(state.params))
@@ -200,12 +232,19 @@ def jax_run(request):
                               beta)
             state, metrics = step(state, (jnp.asarray(imgs),
                                           jnp.asarray(nums)))
+            if jc.train.objective == "iwae":
+                # one forward per particle, each on its key of the split
+                noise = [forward_noise(jc.model, k, BATCH, binarize=True)
+                         for k in jax.random.split(
+                             k_model, jc.train.iwae_particles)]
+            else:
+                noise = forward_noise(jc.model, k_model, BATCH,
+                                      binarize=True)
             rows.append(dict(
                 loss=float(lv), grads=params_from_flax(to_numpy_tree(g)),
                 metrics={k: float(v) for k, v in metrics.items()},
                 params=params_from_flax(to_numpy_tree(state.params)),
-                noise=forward_noise(jc.model, k_model, BATCH,
-                                    binarize=True)))
+                noise=noise))
     return request.param, tc, init, rows, free, tol
 
 
@@ -604,3 +643,70 @@ def test_graphed_step_refuses_a_replaced_state(setup, bank, uncaptured):
                                    for t in state.opt_state["model"].nu]
     with pytest.raises(ValueError, match="captured"):
         step(state)
+
+
+def test_scan_train_step_keeps_its_graph(setup, bank, uncaptured):
+    """``make_scan_train_step`` exposes its ``StepGraph`` under K once the
+    first call captured it, as ``make_train_step`` does its graphs."""
+    cfg, state = setup
+    scan = make_scan_train_step(cfg, state.model, bank, 2)
+    assert scan.graphs == {}
+    state, _ = scan(state)
+    state, _ = scan(state)
+    (k, graph), = scan.graphs.items()
+    assert k == 2 and graph.k == 2 and state.step == 4
+
+
+# -- launches per step of every training preset -----------------------------
+
+# Kernel calls a train step makes (forward, backward): one synthesis
+# paste, then a gather and a paste per cell step, for each particle of
+# the VIMCO objective; remat save_st recomputes no kernel.  chip_smoke.py
+# phase 8 holds the kernels' launches on the card to the same counts.
+PRESET_LAUNCHES = {"crowded": (11, 10), "iwae_trained": (31, 30),
+                   "iwae": (7, 6), "canonical_uniform": (7, 6),
+                   "canonical_uniform28": (7, 6), "single_digit": (3, 2),
+                   "canonical": (7, 6), "no_nvil": (7, 6)}
+
+
+def tiny_preset(name):
+    """The preset at the test model's widths: a 24×24 canvas (32×32 for
+    crowded's 100×100), digits scaled as the canvas, batch 4; every other
+    switch as the preset has it."""
+    cfg = tcfg.get_config(name)
+    img = (32, 32) if cfg.model.img_size == (100, 100) else (24, 24)
+    digit = {16: (8, 8), 20: (10, 10), 28: (12, 12)}[cfg.data.digit_size[0]]
+    widths = {k: v for k, v in TINY.items() if k not in ("max_steps",
+                                                         "n_what")}
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, **dict(
+            widths, img_size=img, n_what=min(cfg.model.n_what, 8))),
+        data=dataclasses.replace(cfg.data, canvas_size=img, digit_size=digit),
+        train=dataclasses.replace(cfg.train, batch_size=4))
+
+
+@pytest.mark.parametrize("name", sorted(PRESET_LAUNCHES))
+def test_preset_launches_per_step(name, monkeypatch):
+    """One train step of each preset calls the gather forward and backward
+    as often as ``PRESET_LAUNCHES`` says (on the CPU each call is the
+    plain version)."""
+    from attend_infer_repeat_torch.ops import st_kernel
+
+    cfg = tiny_preset(name)
+    calls = {"fwd": 0, "bwd": 0}
+
+    def counted(kind, fn):
+        def call(*args, **kw):
+            calls[kind] += 1
+            return fn(*args, **kw)
+        return call
+    monkeypatch.setattr(st_kernel, "st_gather_plain",
+                        counted("fwd", st_kernel.st_gather_plain))
+    monkeypatch.setattr(st_kernel, "st_gather_bwd_plain",
+                        counted("bwd", st_kernel.st_gather_bwd_plain))
+    digits, _ = load_digit_bank("auto", digit_size=cfg.data.digit_size)
+    state = create_train_state(cfg, device="cpu")
+    state, metrics = make_train_step(cfg, state.model, digit_bank=digits)(
+        state)
+    assert np.isfinite(metrics["loss"].item())
+    assert (calls["fwd"], calls["bwd"]) == PRESET_LAUNCHES[name]

@@ -1,6 +1,8 @@
 """PyTorch port: the tests of ``tests/test_utils.py`` (step timer, trace,
-debug mode, functional checks) ported, and the kernels' build cache."""
+debug mode, functional checks) ported, the kernels' build cache and a
+graph's launch counts."""
 
+import collections
 import json
 import os
 
@@ -104,3 +106,38 @@ def test_package_exports_resolve():
                  "debug_mode", "checkify_fn", "trace", "StepTimer",
                  "enable_compilation_cache"):
         assert name in air.__all__
+
+
+def test_graph_counts_launches_by_shape(monkeypatch):
+    """A graph's capture adds no launch, since it executes nothing; each
+    replay adds the launches of one captured run, by shape too."""
+    from attend_infer_repeat_torch.ops import st_kernel
+    from attend_infer_repeat_torch.utils import graphs
+
+    class PythonAtCaptureOnly(graphs.Graph):
+        # as on the card: the capture runs the body's Python, a replay none
+        def _capture(self, body, capture, generators):
+            return body()
+
+        def _replay(self):
+            pass
+
+    key = ("st_gather_bwd", 4, 20, 20, 50, 50)
+    monkeypatch.setattr(st_kernel, "launches", 0)
+    monkeypatch.setattr(st_kernel, "bwd_launches", 0)
+    monkeypatch.setattr(st_kernel, "shape_launches", collections.Counter())
+
+    def body():                     # counts as the kernel's wrapper does
+        st_kernel.bwd_launches += 1
+        st_kernel.shape_launches[key] += 1
+
+    graph = PythonAtCaptureOnly(body, "cpu")
+    assert graph.per_replay == (0, 1, collections.Counter({key: 1}))
+    assert st_kernel.bwd_launches == st_kernel.shape_launches[key] == \
+        graphs.WARMUP
+    graph.launch()
+    graph.launch()
+    assert st_kernel.bwd_launches == st_kernel.shape_launches[key] == \
+        graphs.WARMUP + 2
+    assert st_kernel.launches == 0 and +st_kernel.shape_launches == \
+        collections.Counter({key: graphs.WARMUP + 2})
