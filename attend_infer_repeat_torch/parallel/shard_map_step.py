@@ -7,7 +7,9 @@ the ``data`` axis; parameters and optimizer state stay replicated and
 every device applies the same averaged update.  Here each rank is a
 process: it seeds its generators from ``(base_seed, step, rank)``,
 synthesizes ``batch_size / world`` canvases and averages gradients and
-metrics with one all-reduce.
+metrics with one all-reduce.  ``jax.jit(jax.shard_map(...))`` becomes one
+CUDA graph per rank that holds the rank's step and its all-reduce
+(``train.step.StepGraph``), replayed once a call on every rank.
 
 ``DataParallel`` is how a train step splits over the ranks, for this
 step and for the GSPMD-meaning ``make_train_step(..., mesh=)``.
@@ -25,7 +27,7 @@ from attend_infer_repeat_torch.parallel.sharding import (
     all_reduce_mean,
     constrain_batch,
 )
-from attend_infer_repeat_torch.train.step import _TrainStep
+from attend_infer_repeat_torch.train.step import _graphed_step, _TrainStep
 
 
 @dataclasses.dataclass
@@ -105,15 +107,22 @@ def make_shardmap_train_step(config: Config, model, digit_bank, mesh,
     With ``advantage_norm`` the statistic is the rank's own batch's (the
     single-device step takes the global batch's): the same estimator, a
     slightly different step size per rank.  Both objectives are supported.
+
+    On CUDA the step is a CUDA graph, as ``make_train_step``'s: the
+    per-rank step draws from generators registered with it and re-seeded
+    with the rank before each replay; the external batch and noise are
+    copied into its static buffers.  Eager on the CPU and inside
+    ``utils.debug_mode``.  ``step.graphs`` holds the graphs once captured.
     """
     dp = DataParallel(mesh, global_batch=False,
                       per_rank_seeds=not external_batch)
     dp.batch_size(config.train.batch_size)             # checks it divides
-    ts = _TrainStep(config, model, digit_bank, None, dp)
+    graphed = _graphed_step(_TrainStep(config, model, digit_bank, None, dp))
     if external_batch:
         def step(state, batch, noise=None):
-            return ts.eager(state, batch, noise)
+            return graphed(state, batch, noise)
     else:
         def step(state):
-            return ts.eager(state)
+            return graphed(state)
+    step.graphs = graphed.graphs
     return step

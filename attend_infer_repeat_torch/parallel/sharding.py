@@ -25,16 +25,17 @@ def make_mesh(n_devices: Optional[int] = None,
 
     One rank per card (``"cuda"``, NCCL) or per CPU process (``"cpu"``,
     gloo); ``device_type`` defaults to the group's backend.  With no
-    process group yet, one of this process alone is made (world size 1,
-    NCCL where there is a card), so a one-card run uses the same steps.
-    ``n_devices``, if given, must be the world size.
+    process group yet, one of this process alone is made (world size 1),
+    so a one-card run uses the same steps: NCCL on the card unless the
+    caller asks for the CPU (``device_type="cpu"``, gloo); with no card
+    and no such request it raises.  ``n_devices``, if given, must be the
+    world size.
     """
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
-        dist.init_process_group(
-            "nccl" if torch.cuda.is_available() else "gloo",
-            store=dist.HashStore(), rank=0, world_size=1)
+        dist.init_process_group(_backend(device_type), store=dist.HashStore(),
+                                rank=0, world_size=1)
     world = dist.get_world_size()
     if n_devices is not None and n_devices != world:
         raise ValueError(f"a mesh spans the whole process group: "
@@ -43,6 +44,21 @@ def make_mesh(n_devices: Optional[int] = None,
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, (world,),
                             mesh_dim_names=(axis_name,))
+
+
+def _backend(device_type: Optional[str]) -> str:
+    """The backend of a one-process group for ``device_type`` (None: the
+    card)."""
+    if device_type == "cpu":
+        return "gloo"
+    if device_type not in (None, "cuda"):
+        raise ValueError(f"device_type must be 'cuda' or 'cpu', not "
+                         f"{device_type!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("make_mesh: no CUDA device for an NCCL group; "
+                           "pass device_type='cpu' for a gloo group on the "
+                           "CPU")
+    return "nccl"
 
 
 def batch_sharding(mesh, ndim: int = 3, axis_name: str = DATA_AXIS):
@@ -82,7 +98,10 @@ def shard_batch(mesh, tree, axis_name: str = DATA_AXIS):
 
 
 def all_reduce_mean(tensors: List[torch.Tensor], mesh) -> List[torch.Tensor]:
-    """The mean over the ranks of each tensor (one all-reduce of them all)."""
+    """The mean over the ranks of each tensor (one all-reduce of them all).
+
+    Reads nothing on the host and allocates only what it returns, so a
+    CUDA graph can capture it."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat, group=mesh.get_group())
     flat = flat / mesh.size()
@@ -94,7 +113,8 @@ def all_reduce_mean(tensors: List[torch.Tensor], mesh) -> List[torch.Tensor]:
 
 
 def gather_batch(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The ranks' rows of a batch, joined in rank order along axis 0."""
-    parts = [torch.empty_like(x) for _ in range(mesh.size())]
-    dist.all_gather(parts, x.contiguous(), group=mesh.get_group())
-    return torch.cat(parts, 0)
+    """The ranks' rows of a batch, joined in rank order along axis 0 (one
+    all-gather into one buffer; a CUDA graph can capture it)."""
+    out = x.new_empty((mesh.size() * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.get_group())
+    return out

@@ -9,9 +9,12 @@ replayed a call, with the noise drawn from the caller's generator before
 the replay, as the eager call draws it, so the results, and the
 generator's state after the call, equal the eager call's.  They run
 eagerly on the CPU and inside ``utils.debug_mode``.  With a ``mesh``
-(``parallel.make_mesh``) each rank runs its rows of the batch eagerly,
-with the noise drawn for the whole batch as one device would draw it,
-and every rank gets the whole result: it equals the single-device call.
+(``parallel.make_mesh``) the noise is drawn for the whole batch as one
+device would draw it; each rank runs its rows of the batch and
+all-gathers the outputs, so every rank gets the whole result, equal to
+the single-device call.  On CUDA that, the all-gather too, is one CUDA
+graph per batch shape, which every rank must call alike
+(``utils.graphs``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,10 @@ import torch
 
 from attend_infer_repeat_torch.configs import Config
 from attend_infer_repeat_torch.models.air import AIRModel, Noise
+from attend_infer_repeat_torch.parallel.sharding import (
+    constrain_batch,
+    gather_batch,
+)
 from attend_infer_repeat_torch.utils import graphs
 
 
@@ -47,7 +54,8 @@ def make_infer_fn(config: Config, model: AIRModel,
     the batch instead.  ``None`` runs the batch in one pass.  On CUDA a
     tiled batch replays one graph of the tile's shape once per chunk, as
     ``lax.scan`` runs one program per chunk, so that memory stays at one
-    tile's.  With a ``mesh`` each rank runs its rows in one pass.
+    tile's.  With a ``mesh`` each rank runs its rows in one pass (a
+    ``tile`` only sets how the noise is drawn).
     """
     p_success = config.prior.final_success_prob
     p_device = torch.tensor(p_success, dtype=torch.float32,
@@ -70,8 +78,16 @@ def make_infer_fn(config: Config, model: AIRModel,
             "mode_steps": out.mode_steps,
         }
 
-    cache = graphs.GraphCache(
-        lambda held, imgs, noise, p: _one(imgs, None, noise, p))
+    def forward(imgs, noise, p):
+        """The batch's outputs from its noise: this rank's rows, gathered,
+        with a mesh."""
+        if mesh is None:
+            return _one(imgs, None, noise, p)
+        out = _one(constrain_batch(imgs, mesh), None,
+                   tuple(constrain_batch(a, mesh, dim=1) for a in noise), p)
+        return {k: gather_batch(v, mesh) for k, v in out.items()}
+
+    cache = graphs.GraphCache(lambda held, *inputs: forward(*inputs))
 
     def draw(batch, generator):
         """The forward's noise for ``batch``: one stream, or one per tile."""
@@ -88,18 +104,15 @@ def make_infer_fn(config: Config, model: AIRModel,
         tiled = tile is not None and batch > tile
         if tiled and batch % tile:
             raise ValueError(f"batch {batch} not divisible by tile {tile}")
-        eager = mesh is not None or graphs.eager(model.device)
+        eager = graphs.eager(model.device)
         if eager and mesh is None and not tiled:
             return _one(imgs.to(model.device), generator, noise)
         if noise is None:
             noise = draw(batch, generator)
-        if mesh is not None:
-            from attend_infer_repeat_torch.parallel.sharding import (
-                constrain_batch, gather_batch)
-            out = _one(constrain_batch(imgs.to(model.device), mesh), None,
-                       tuple(constrain_batch(a, mesh, dim=1) for a in noise))
-            return {k: gather_batch(v, mesh) for k, v in out.items()}
-        if not tiled:
+        if mesh is not None or not tiled:
+            if eager:
+                return forward(imgs.to(model.device), tuple(noise),
+                               p_success)
             return cache(model, imgs, tuple(noise), p_device)
         imgs = imgs.to(model.device)
         outs = {}
@@ -129,28 +142,32 @@ def make_generate_fn(config: Config, model: AIRModel,
     prior (``config.prior.final_success_prob``) puts almost all mass on
     empty scenes, so callers opt into it explicitly.  On CUDA one graph
     per batch renders the scenes from noise drawn before the replay.  With
-    a ``mesh`` each rank draws the whole batch's noise and renders its
-    rows.
+    a ``mesh`` each rank draws the whole batch's noise, renders its rows
+    and all-gathers the scenes (in the graph on CUDA).
     """
     p_success = 1.0 if success_prob is None else success_prob
-    cache = graphs.GraphCache(lambda held, noise: model.generate(
-        noise[0].shape[0], p_success, noise=noise))
+
+    def render(noise):
+        if mesh is None:
+            return model.generate(noise[0].shape[0], p_success, noise=noise)
+        rows = tuple(constrain_batch(a, mesh) for a in noise)
+        return gather_batch(model.generate(rows[0].shape[0], p_success,
+                                           noise=rows), mesh)
+
+    cache = graphs.GraphCache(lambda held, noise: render(noise))
 
     @torch.inference_mode()
     def generate(batch: int, generator: torch.Generator | None = None,
                  noise=None) -> torch.Tensor:
-        if mesh is None and graphs.eager(model.device):
+        eager = graphs.eager(model.device)
+        if eager and mesh is None:
             return model.generate(batch, p_success, generator=generator,
                                   noise=noise)
         if noise is None:
             noise = model.generate_noise(batch, p_success, generator)
-        if mesh is None:
-            return cache(model, tuple(noise))
-        from attend_infer_repeat_torch.parallel.sharding import (
-            constrain_batch, gather_batch)
-        rows = tuple(constrain_batch(a, mesh) for a in noise)
-        return gather_batch(model.generate(rows[0].shape[0], p_success,
-                                           noise=rows), mesh)
+        if eager:
+            return render(tuple(noise))
+        return cache(model, tuple(noise))
 
     generate.graphs = cache
     return generate

@@ -36,7 +36,8 @@ With a ``mesh`` (``parallel.make_mesh``) both keep the GSPMD meaning of
 the JAX package: the result equals the single-device step.  Every rank
 draws the global batch and the global noise from the step's generators,
 keeps its rows, and averages the gradients and the metrics over the
-ranks before the update.
+ranks before the update.  On CUDA those collectives are captured with
+the step, as GSPMD puts them inside the jitted program.
 """
 
 from __future__ import annotations
@@ -345,13 +346,20 @@ def make_train_step(config: Config, model: AIRModel, digit_bank=None,
     buffers (a host batch from pinned memory).  The results equal the
     eager step's.  The graph holds the addresses of the parameters and of
     ``state.opt_state``'s tensors: a state whose tensors are not those
-    raises.  Runs eagerly on the CPU, inside ``utils.debug_mode`` and with
-    a ``mesh``.
+    raises.  With a ``mesh`` the graph holds the step's collectives too
+    (the gradient and metric all-reduce, and ``advantage_norm``'s batch
+    statistic): every rank must call the step alike (``utils.graphs``).
+    Runs eagerly on the CPU and inside ``utils.debug_mode``.
     """
-    dp = _global_batch(mesh)
-    ts = _TrainStep(config, model, digit_bank, device_data, dp)
-    if dp is not None:
-        return ts.eager
+    return _graphed_step(_TrainStep(config, model, digit_bank, device_data,
+                                    _global_batch(mesh)))
+
+
+def _graphed_step(ts: _TrainStep) -> Callable:
+    """``step(state, batch=None, noise=None)``: ``ts`` through one
+    ``StepGraph`` (K = 1) per data source on CUDA, eager on the CPU and
+    inside ``utils.debug_mode``; ``step.graphs`` maps each data source's
+    signature to its graph."""
     cache = {}
 
     def step(state: TrainState, batch=None, noise=None):
@@ -389,22 +397,22 @@ def make_scan_train_step(config: Config, model: AIRModel, digit_bank,
     not those raises (a restore must copy in place, as
     ``train.checkpoint`` does).
 
-    Runs the K steps eagerly, by design, on the CPU, inside
-    ``utils.debug_mode`` (the counterpart of ``jax_disable_jit``) and
-    with a ``mesh`` (the collectives are not captured).  Needs an
-    on-device data source (``digit_bank`` or ``device_data``).
+    With a ``mesh`` the graph holds each step's collectives too.  Runs
+    the K steps eagerly, by design, on the CPU and inside
+    ``utils.debug_mode`` (the counterpart of ``jax_disable_jit``).  Needs
+    an on-device data source (``digit_bank`` or ``device_data``).
     ``scan.graphs`` holds the ``StepGraph`` once captured, under K.
     """
     if digit_bank is None and device_data is None:
         raise ValueError("the K-step loop needs an on-device data source "
                          "(digit_bank or device_data)")
-    dp = _global_batch(mesh)
-    ts = _TrainStep(config, model, digit_bank, device_data, dp)
+    ts = _TrainStep(config, model, digit_bank, device_data,
+                    _global_batch(mesh))
     graphed = None
 
     def scan(state: TrainState):
         nonlocal graphed
-        if dp is not None or graphs.eager(ts.device):
+        if graphs.eager(ts.device):
             rows = []
             for _ in range(k_steps):
                 state, m = ts.eager(state)

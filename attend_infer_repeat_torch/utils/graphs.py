@@ -25,12 +25,21 @@ are checked at each call: a call with other tensors raises, as does a
 failed capture or replay.  Nothing falls back to eager.
 
 Every graphed entry point runs eagerly, by design, on the CPU and
-inside ``utils.debug_mode`` (the counterpart of ``jax_disable_jit``);
-with a mesh, where the NCCL collectives are not captured, the entry
-points run eagerly too.  Random draws stay outside the graphs: each
-entry point draws its noise from the caller's generator before the
-replay, exactly as its eager call does, and copies it in.  Only the
-train step keeps generators registered with its graphs.
+inside ``utils.debug_mode`` (the counterpart of ``jax_disable_jit``).
+Random draws stay outside the graphs: each entry point draws its noise
+from the caller's generator before the replay, exactly as its eager call
+does, and copies it in.  Only the train step keeps generators registered
+with its graphs.
+
+A body may issue ``torch.distributed`` collectives (a mesh entry point's
+all-reduce and all-gather, the counterpart of ``jit`` over a ``Mesh``):
+they are captured into the graph on NCCL's own stream, which forks from
+and joins the capture stream, and each replay runs them again.  The first
+warm-up run creates the NCCL communicator, which a capture could not.
+The rule of such graphs: every rank of the group builds the same graphs
+in the same order and replays them in the same order, so that each
+warm-up run, capture and replay issues the same collectives on every
+rank; a collective that one rank skips hangs the others.
 """
 
 from __future__ import annotations

@@ -64,8 +64,15 @@ Phases, in order (any failure raises and exits non-zero):
    metrics; then the CLI (``python -m attend_infer_repeat_torch.train``)
    for 2 steps;
 7b. data parallelism on a one-rank NCCL mesh (``parallel.make_mesh``):
-   the mesh step and the external-batch shard-map step against the plain
-   step (eager) from the same state, and a per-rank shard-map step;
+   eagerly, the mesh step and the external-batch shard-map step against
+   the plain step from the same state, and a per-rank shard-map step;
+   then every mesh entry point as a CUDA graph that holds its NCCL
+   collectives, against its eager call from the same state and
+   generator state, bit-equal: the mesh step (and the graphed plain
+   step held to it within the step limits and timed in turns with it),
+   both shard-map forms, the K = 4 chunk, sharded infer (one pass and
+   tiled) and generate at batch 8192; graphed and eager walls, each
+   graph's pool and the phase's launches, beside the card;
 7c. ``utils.trace`` around a graphed chunk writes a trace that holds the
    replayed kernels, and ``utils.debug_mode`` traps a NaN injected into
    a train step's batch;
@@ -1396,22 +1403,76 @@ def entry_points_phase(air, st_kernel, smi, bank):
     return st_kernel.launches, st_kernel.bwd_launches
 
 
-def mesh_phase(air, st_kernel, bank):
-    """The data-parallel steps on a one-rank NCCL mesh against the plain
-    step; returns the launch counts of that run."""
+MESH_CALLS = 5          # phase 7b: calls of each mesh step, the first captures
+
+
+def graphed_vs_eager(air, name, make, seed, smi, *args):
+    """``make(state)``: a mesh step or chunk.  ``MESH_CALLS`` calls of it
+    through its CUDA graph and the same calls eagerly (``debug_mode``),
+    in turns from one state, bit-equal in parameters, optimizer state,
+    step, counts and every metric row; prints both walls per step
+    (medians of the calls after the first, which captures) and the
+    graphs' pools.  Returns the graphed step, state and metric rows."""
+    from attend_infer_repeat_torch.utils import debug_mode
+
+    fast = air.get_config("canonical_fast")
+    states = {m: air.create_train_state(fast, seed=seed)
+              for m in ("graphed", "eager")}
+    fns = {m: make(s) for m, s in states.items()}
+    walls = {m: [] for m in states}
+    rows = {m: [] for m in states}
+    for _ in range(MESH_CALLS):
+        for mode in states:
+            with debug_mode(nans=False) if mode == "eager" \
+                    else contextlib.nullcontext():
+                (states[mode], m), dt = timed(fns[mode], states[mode], *args)
+            walls[mode].append(dt)
+            rows[mode].append({k: v.reshape(-1) for k, v in m.items()})
+    got, want = ({k: torch.cat([r[k] for r in rows[m]]) for k in rows[m][0]}
+                 for m in ("graphed", "eager"))
+    bit_equal(f"graphed {name}", states["graphed"], states["eager"], got,
+              want)
+    check_metrics(got, f"graphed {name}")
+    k = got["loss"].numel() // MESH_CALLS
+    ms = {m: statistics.median(w[1:]) / k * 1e3 for m, w in walls.items()}
+    pool = sum(g.graph.pool_bytes for g in fns["graphed"].graphs.values())
+    print(f"  {name}: {MESH_CALLS} calls of {k} step(s) graphed and eager "
+          f"from one state bit-equal (parameters, optimizer state, "
+          f"{len(got)} metric rows); step wall graphed "
+          f"{ms['graphed']:.3f} ms, eager {ms['eager']:.3f} ms "
+          f"({ms['eager'] / ms['graphed']:.2f}x; medians of calls 2-"
+          f"{MESH_CALLS}); graph pool {pool / 2**20:.1f} MiB; {smi}",
+          flush=True)
+    return fns["graphed"], states["graphed"], got
+
+
+def mesh_phase(air, st_kernel, bank, smi):
+    """Data parallelism on a one-rank NCCL mesh.  First eagerly, the
+    reference: the mesh step and the external-batch shard-map step
+    against the plain step from the same state, and a per-rank shard-map
+    step.  Then every mesh entry point through its CUDA graph, which holds
+    its collectives, against its eager call (``graphed_vs_eager``,
+    ``versus``), bit-equal: the mesh step (the graphed plain step held to
+    it within the step limits, and both timed in turns), the external-
+    batch and per-rank shard-map steps, the K = 4 chunk, sharded infer
+    (one pass and tiled) and generate at batch 8192.  Returns the launch
+    counts of that run."""
     import torch.distributed as dist
     from attend_infer_repeat_torch.data import make_synth_fn
     from attend_infer_repeat_torch.parallel import (
         make_mesh, make_shardmap_train_step)
+    from attend_infer_repeat_torch.serving import (
+        make_generate_fn, make_infer_fn)
     from attend_infer_repeat_torch.utils import debug_mode
+    from attend_infer_repeat_torch.utils.graphs import WARMUP
 
     fast = air.get_config("canonical_fast")
+    serving = air.get_config("serving")
     mesh = make_mesh()
     print(f"  mesh {mesh} on the {dist.get_backend()} backend", flush=True)
     st_kernel.launches = st_kernel.bwd_launches = 0
-    # every step eagerly: the mesh steps run so, and the one-device steps
-    # they are held against too
     try:
+        # eagerly, the reference: the one-device steps too
         with debug_mode(nans=False):
             plain = air.create_train_state(fast, seed=6)
             meshed = air.create_train_state(fast, seed=6)
@@ -1421,7 +1482,7 @@ def mesh_phase(air, st_kernel, bank):
                 fast, meshed.model, digit_bank=bank, mesh=mesh)(meshed)
             gap = hold_to_step_limits("mesh step", *state_gap(meshed, plain),
                                       rows_gap(mm, mp))
-            print(f"  mesh step vs plain step: {gap}", flush=True)
+            print(f"  eager mesh step vs plain step: {gap}", flush=True)
 
             imgs, nums = make_synth_fn(fast.data, bank)(
                 N_TRAIN, torch.Generator("cuda").manual_seed(5))
@@ -1434,23 +1495,105 @@ def mesh_phase(air, st_kernel, bank):
                     b, (imgs, nums))
             gap = hold_to_step_limits("shard-map step", *state_gap(b, a),
                                       rows_gap(mb, ma))
-            print(f"  external-batch shard-map step vs plain step on one "
-                  f"batch: {gap}", flush=True)
+            print(f"  eager external-batch shard-map step vs plain step on "
+                  f"one batch: {gap}", flush=True)
             c = air.create_train_state(fast, seed=8)
             step = make_shardmap_train_step(fast, c.model, bank, mesh)
             for _ in range(2):
                 c, mc = step(c)
                 check_metrics(mc, "per-rank shard-map step")
-            print(f"  per-rank shard-map step: 2 steps, elbo "
+            print(f"  eager per-rank shard-map step: 2 steps, elbo "
                   f"{mc['elbo'].item():.2f}", flush=True)
+        del plain, meshed, a, b, c, step
+        # 6 steps, 2 of them on an injected batch (no synthesis), and the
+        # synthesis of that batch
+        expected = [6 * 7 - 2 + 1, 6 * 6]
+        counts = [st_kernel.launches, st_kernel.bwd_launches]
+        if counts != expected:
+            raise AssertionError(f"eager mesh steps: launches {counts}")
+
+        # through the CUDA graphs: graphed runs = warm-up + calls x steps
+        def add(per_run, runs):
+            for i, n in enumerate(per_run):
+                expected[i] += n * runs
+
+        graphed_runs = WARMUP + MESH_CALLS
+        step, meshed, mesh_rows = graphed_vs_eager(
+            air, "mesh step", lambda s: air.make_train_step(
+                fast, s.model, digit_bank=bank, mesh=mesh), 21, smi)
+        add((7, 6), graphed_runs + MESH_CALLS)
+        plain = air.create_train_state(fast, seed=21)
+        plain_step = air.make_train_step(fast, plain.model, digit_bank=bank)
+        rows = []
+        for _ in range(MESH_CALLS):
+            plain, m = plain_step(plain)
+            rows.append(m)
+        add((7, 6), graphed_runs)
+        gap = hold_to_step_limits("graphed mesh step vs graphed plain step",
+                                  *state_gap(meshed, plain),
+                                  rows_gap(mesh_rows, rows_of(rows)))
+        walls = {"mesh": [], "plain": []}
+        for _ in range(10):
+            walls["mesh"].append(timed(step, meshed)[1])
+            walls["plain"].append(timed(plain_step, plain)[1])
+        add((7, 6), 2 * 10)
+        ms = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+        print(f"  graphed mesh step vs graphed plain step, {MESH_CALLS} "
+              f"steps from one state: {gap}; step wall in turns (medians of "
+              f"10): mesh {ms['mesh']:.3f} ms, plain {ms['plain']:.3f} ms "
+              f"({100 * (ms['mesh'] / ms['plain'] - 1):+.1f} %), batch "
+              f"{N_TRAIN} on {smi}", flush=True)
+        del step, plain_step, meshed, plain
+
+        graphed_vs_eager(air, "external-batch shard-map step",
+                         lambda s: make_shardmap_train_step(
+                             fast, s.model, bank, mesh, external_batch=True),
+                         22, smi, (imgs, nums))
+        add((6, 6), graphed_runs + MESH_CALLS)
+        graphed_vs_eager(air, "per-rank shard-map step",
+                         lambda s: make_shardmap_train_step(
+                             fast, s.model, bank, mesh), 23, smi)
+        add((7, 6), graphed_runs + MESH_CALLS)
+        k = 4
+        graphed_vs_eager(air, f"mesh chunk K={k}",
+                         lambda s: air.make_scan_train_step(
+                             fast, s.model, bank, k, mesh=mesh), 24, smi)
+        add((7, 6), WARMUP + 2 * k * MESH_CALLS)
+        del imgs, nums
+        torch.cuda.empty_cache()
+
+        reps = 3
+        runs = WARMUP + 2 + 2 * reps                # as ``versus`` calls
+        model = air.AIRModel(serving.model, use_baseline=False, seed=0)
+        with debug_mode(nans=False):
+            imgs, _ = make_synth_fn(serving.data, bank)(
+                N_SERVE, torch.Generator("cuda").manual_seed(7))
+        add((1, 0), 1)
+        out = versus(f"sharded infer, serving, batch {N_SERVE}",
+                     make_infer_fn(serving, model, mesh=mesh), (imgs,), 30,
+                     N_SERVE, smi, reps=reps)
+        check_infer(out, N_SERVE, serving.model)
+        versus(f"sharded infer, serving, batch {N_SERVE}, tile "
+               f"{N_SERVE // 2}", make_infer_fn(
+                   serving, model, tile=N_SERVE // 2, mesh=mesh), (imgs,),
+               31, N_SERVE, smi, reps=reps)
+        add((2 * 2 * serving.model.max_steps, 0), runs)
+        versus(f"sharded generate, batch {N_SERVE}",
+               make_generate_fn(serving, model, mesh=mesh), (N_SERVE,), 32,
+               N_SERVE, smi, reps=reps)
+        add((1, 0), runs)
+        del model, imgs, out
     finally:
         dist.destroy_process_group()
-    counts = (st_kernel.launches, st_kernel.bwd_launches)
-    # 6 steps, 2 of them on an injected batch (no synthesis), and the
-    # synthesis of that batch
-    if counts != (6 * 7 - 2 + 1, 6 * 6):
-        raise AssertionError(f"mesh phase: launches {counts}")
-    return counts
+    torch.cuda.empty_cache()
+    counts = [st_kernel.launches, st_kernel.bwd_launches]
+    if counts != expected:
+        raise AssertionError(f"mesh phase: launches {counts}, expected "
+                             f"{expected}")
+    print(f"  mesh phase launches: {counts[0]} forward, {counts[1]} backward "
+          f"(a graph's first call adds its {WARMUP} warm-up runs); {smi}",
+          flush=True)
+    return tuple(counts)
 
 
 def utils_phase(air, bank):
@@ -1761,7 +1904,8 @@ def main() -> int:
     loop_launches, loop_bwd_launches = loop_phase(air, st_kernel, smi)
 
     print("[7b] data parallelism on a one-rank NCCL mesh", flush=True)
-    mesh_launches, mesh_bwd_launches = mesh_phase(air, st_kernel, bank)
+    mesh_launches, mesh_bwd_launches = mesh_phase(air, st_kernel, bank,
+                                                  smi)
 
     print("[7c] utils: a trace of a graphed chunk, the NaN trap", flush=True)
     utils_phase(air, bank)

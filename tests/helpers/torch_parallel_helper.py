@@ -164,6 +164,89 @@ def case_serving(mesh, inp):
     return out
 
 
+def state_tensors(state, metrics):
+    """Everything a step leaves: parameters, optimizer state, metrics."""
+    return {"step": state.step,
+            "counts": {g: st.count for g, st in state.opt_state.items()},
+            "params": {k: v.clone()
+                       for k, v in state.model.state_dict().items()},
+            "opt": {g: [t.clone() for t in (*st.nu, *st.trace)]
+                    for g, st in state.opt_state.items()},
+            "metrics": dict(metrics)}
+
+
+def entry_points(mesh, inp):
+    """Every mesh entry point once (a step twice), from fresh states and
+    generators seeded alike; with each one's graphs, by count."""
+    from attend_infer_repeat_torch.data import make_synth_fn
+    from attend_infer_repeat_torch.models.air import AIRModel
+    from attend_infer_repeat_torch.parallel import make_shardmap_train_step
+    from attend_infer_repeat_torch.serving import (
+        make_generate_fn, make_infer_fn)
+    from attend_infer_repeat_torch.train import (
+        create_train_state, make_scan_train_step, make_train_step)
+
+    cfg, k, batch = config_from(inp["config"]), inp["k"], inp["batch"]
+    out, n_graphs = {}, {}
+
+    def steps(name, make, *args):
+        state = create_train_state(cfg, device="cpu")
+        step = make(state)
+        rows = [step(state, *args)[1] for _ in range(2)]
+        out[name] = state_tensors(state, {key: torch.stack(
+            [r[key] for r in rows]) for key in rows[0]})
+        n_graphs[name] = len(step.graphs)
+
+    steps("step", lambda s: make_train_step(cfg, s.model, digit_bank=bank(),
+                                            mesh=mesh))
+    steps("step_external_batch", lambda s: make_train_step(
+        cfg, s.model, mesh=mesh), batch)
+    steps("shardmap_per_rank", lambda s: make_shardmap_train_step(
+        cfg, s.model, bank(), mesh))
+    steps("shardmap_external", lambda s: make_shardmap_train_step(
+        cfg, s.model, bank(), mesh, external_batch=True), batch)
+
+    state = create_train_state(cfg, device="cpu")
+    scan = make_scan_train_step(cfg, state.model, bank(), k, mesh=mesh)
+    out["chunk"] = state_tensors(*scan(state))
+    n_graphs["chunk"] = len(scan.graphs)
+
+    model = AIRModel(cfg.model, use_baseline=False, device="cpu", seed=0)
+    imgs, _ = make_synth_fn(cfg.data, bank(), device="cpu")(
+        16, torch.Generator().manual_seed(0))
+    for name, tile in (("infer_one_pass", None), ("infer_tiled", 4)):
+        fn = make_infer_fn(cfg, model, tile=tile, mesh=mesh)
+        g = torch.Generator().manual_seed(3)
+        out[name] = {"out": fn(imgs, g), "generator": g.get_state()}
+        n_graphs[name] = len(fn.graphs)
+    fn = make_generate_fn(cfg, model, mesh=mesh)
+    g = torch.Generator().manual_seed(9)
+    out["generate"] = {"out": fn(16, g), "generator": g.get_state()}
+    n_graphs["generate"] = len(fn.graphs)
+    return out, n_graphs
+
+
+def case_graphed(mesh, inp):
+    """Every mesh entry point through its graphed path, with the capture
+    stubbed out (``torch_uncaptured``), and through its eager path
+    (``debug_mode``): each rank issues the collectives of the warm-up
+    runs, the capture and the replays."""
+    import pytest
+    from torch_uncaptured import UncapturedGraph
+
+    from attend_infer_repeat_torch.utils import debug_mode
+
+    patch = pytest.MonkeyPatch()
+    UncapturedGraph.install(patch)
+    try:
+        graphed, n_graphs = entry_points(mesh, inp)
+        with debug_mode(nans=False):
+            eager, _ = entry_points(mesh, inp)
+    finally:
+        patch.undo()
+    return {"graphed": graphed, "eager": eager, "n_graphs": n_graphs}
+
+
 CASES = {name[len("case_"):]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 

@@ -24,7 +24,12 @@ import torch
 
 from attend_infer_repeat_torch import configs as tcfg
 from attend_infer_repeat_torch.convert import params_from_flax
-from torch_parity import binarized_presence, forward_noise, to_numpy_tree
+from torch_parity import (
+    assert_bit_equal,
+    binarized_presence,
+    forward_noise,
+    to_numpy_tree,
+)
 
 HELPER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "helpers",
                       "torch_parallel_helper.py")
@@ -220,6 +225,72 @@ def test_shardmap_matches_jax_shardmap(tmp_path):
                 "baseline.") else TRAIN["learning_rate"]
             err = (got["params"][n] - v).abs().max().item()
             assert err <= tol["param"] * lr, (n, err)
+
+
+# -- the graphed mesh entry points --------------------------------------------
+
+GRAPHED = ("step", "step_external_batch", "chunk", "shardmap_per_rank",
+           "shardmap_external", "infer_one_pass", "infer_tiled", "generate")
+
+
+@pytest.fixture(scope="module")
+def graphed(tmp_path_factory):
+    """Each mesh entry point on 2 ranks, graphed (the capture stubbed out)
+    and eager; ``advantage_norm`` puts an all-reduce inside the forward."""
+    from attend_infer_repeat_torch.data import load_digit_bank, make_synth_fn
+
+    cfg = tiny_config(advantage_norm=True)
+    bank, _ = load_digit_bank("auto", digit_size=(8, 8))
+    imgs, nums = make_synth_fn(cfg.data, bank, device="cpu")(
+        8, torch.Generator().manual_seed(7))
+    return run_ranks(tmp_path_factory.mktemp("graphed"), "graphed", cfg,
+                     k=4, batch=(imgs.clone(), nums.clone()))
+
+
+@pytest.mark.parametrize("entry", GRAPHED)
+def test_graphed_mesh_entry_point_equals_eager(graphed, entry):
+    """Through its graphed path (warm-up, capture and replays, each rank
+    issuing their collectives) every mesh entry point gives, on every
+    rank, what its eager call gives, bit for bit: the state and metric
+    rows of two steps (of one K = 4 chunk), or the request's outputs and
+    the generator's state after."""
+    def tensors(x):
+        return {k: v for k, v in x.items() if k not in ("step", "counts")}
+
+    for r, o in enumerate(graphed):
+        assert o["n_graphs"][entry] >= 1, (entry, r)
+        got, want = o["graphed"][entry], o["eager"][entry]
+        for key in ("step", "counts"):
+            assert got.get(key) == want.get(key), (entry, key)
+        assert_bit_equal(tensors(got), tensors(want), f"{entry}, rank {r}")
+    for o in graphed[1:]:
+        assert_bit_equal(tensors(o["graphed"][entry]),
+                         tensors(graphed[0]["graphed"][entry]),
+                         f"{entry}: the ranks differ")
+
+
+def test_make_mesh_needs_a_card_or_the_cpu_asked_for(monkeypatch):
+    """With no process group, ``make_mesh`` makes a one-rank NCCL group on
+    the card; with no card it raises, unless the caller asks for the CPU
+    (a one-rank gloo group)."""
+    import torch.distributed as dist
+
+    from attend_infer_repeat_torch.parallel import make_mesh
+
+    assert not dist.is_initialized()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device_type in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="device_type='cpu'"):
+            make_mesh(device_type=device_type)
+    with pytest.raises(ValueError, match="'tpu'"):
+        make_mesh(device_type="tpu")
+    assert not dist.is_initialized()
+    mesh = make_mesh(device_type="cpu")
+    try:
+        assert dist.get_backend() == "gloo"
+        assert mesh.size() == 1 and mesh.device_type == "cpu"
+    finally:
+        dist.destroy_process_group()
 
 
 # -- serving -----------------------------------------------------------------

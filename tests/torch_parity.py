@@ -21,6 +21,7 @@ from attend_infer_repeat_torch.convert import params_from_flax
 from attend_infer_repeat_torch.models.air import AIRModel as TorchAIR
 from attend_infer_repeat_tpu import configs as jcfg
 from attend_infer_repeat_tpu.models.air import AIRModel as JaxAIR
+from helpers.torch_uncaptured import UncapturedGraph
 
 TINY = dict(img_size=(24, 24), glimpse_size=(10, 10), n_what=8, max_steps=3,
             rnn_hidden=32, encoder_hidden=(32,),
@@ -109,43 +110,6 @@ def generate_noise(jc, key, batch, success_prob):
     eps_where = jax.random.normal(k_where, (batch, jc.max_steps, d_where))
     return tuple(torch.from_numpy(np.array(a))
                  for a in (n, eps_what, eps_where))
-
-
-class UncapturedGraph:
-    """Stands in for ``utils.graphs.Graph`` on the CPU, which has no CUDA
-    graphs: the warm-up runs as on the card (``state`` put back after),
-    "capture" runs the body once (``state`` put back after) and keeps what
-    it returned as the static outputs, and each "replay" runs the body
-    eagerly and copies its
-    results into those same tensors, as a real replay rewrites them.  So
-    a caller that handed out the static outputs without copying them
-    would see them change, as it would on the card."""
-
-    @staticmethod
-    def install(monkeypatch):
-        from attend_infer_repeat_torch.utils import debug, graphs
-
-        class Uncaptured(graphs.Graph):
-            def _capture(self, body, capture, generators):
-                # a capture executes nothing: the state is put back
-                self._body = body
-                with torch.no_grad():
-                    saved = [t.clone() for t in self.state]
-                out = body()
-                with torch.no_grad():
-                    for t, v in zip(self.state, saved):
-                        t.copy_(v)
-                return out
-
-            def _replay(self):
-                fresh = self._body()
-                for s, v in zip(graphs.leaves(self.out),
-                                graphs.leaves(fresh)):
-                    s.copy_(v)
-
-        # the graphed path on the CPU; debug_mode still selects the eager one
-        monkeypatch.setattr(graphs, "eager", lambda device: debug.active())
-        monkeypatch.setattr(graphs, "Graph", Uncaptured)
 
 
 @pytest.fixture
