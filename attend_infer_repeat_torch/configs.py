@@ -13,6 +13,7 @@ them: on a CUDA tensor it always launches the hand-written gather kernel
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 from typing import Optional, Tuple
 
@@ -306,3 +307,21 @@ def get_config(name: str) -> Config:
     if name not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
     return PRESETS[name]
+
+
+def apply_overrides(section, sets):
+    """``section`` (a config dataclass) with ``KEY=VALUE`` overrides.
+
+    The scripts' ``--model-set``/``--train-set``/``--data-set``/
+    ``--prior-set`` syntax: each value is parsed with ``ast.literal_eval``,
+    and a key that is not a field of the dataclass raises ``SystemExit``
+    naming it, so that a typo fails at once.
+    """
+    kw = {}
+    for item in sets or []:
+        key, _, val = item.partition("=")
+        key = key.strip()
+        if key not in {f.name for f in dataclasses.fields(section)}:
+            raise SystemExit(f"{type(section).__name__} has no field {key!r}")
+        kw[key] = ast.literal_eval(val)
+    return dataclasses.replace(section, **kw) if kw else section

@@ -76,6 +76,24 @@ Phases, in order (any failure raises and exits non-zero):
 7c. ``utils.trace`` around a graphed chunk writes a trace that holds the
    replayed kernels, and ``utils.debug_mode`` traps a NaN injected into
    a train step's batch;
+7d. the reference workflow, through each tool's ``main(argv)`` in this
+   process, in a temporary directory: ``scripts/torch_create_dataset.py``
+   at its defaults (60,000 + 10,000 canvases, 18 synthesis calls, one
+   paste launch each after the 2 graphs' warm-ups; the pickles' keys,
+   dtypes, counts and pixel range; a second write byte-equal);
+   ``train()`` from those pickles with the data resident on the card
+   (phase 7's schedule, the launches, a resume bit-equal), the steady
+   step wall of the resident chunk against the synthesis-fed one in
+   turns; ``train()`` streamed from the host for 50 steps and what sets
+   its pace (the host's batch assembly, the copy, the graph); the CLI
+   with ``--data``/``--eval-data`` in a new process;
+   ``scripts/torch_eval_checkpoint.py`` on the resident run (latest with
+   ``--iwae``, and ``--best``: restored steps, a confusion total of
+   16 × 1024, the JAX script's keys, the launches);
+   ``scripts/torch_run_variant.py`` with ``remat=False`` and
+   ``scan_steps=50``; ``scripts/torch_make_explainaway_fig.py``'s
+   selection on the resident run, and its render's ``ImportError``
+   without matplotlib;
 8. every other training preset (``PRESET_LAUNCHES``: ``crowded``,
    ``iwae_trained``, ``iwae``, ``canonical_uniform``,
    ``canonical_uniform28``, ``single_digit``, ``canonical``, ``no_nvil``)
@@ -102,12 +120,12 @@ Phases, in order (any failure raises and exits non-zero):
 Phases 3 and 3b include the ``crowded`` preset's 100×100 canvas, and a
 NaN and an infinity in the image and the cotangent against the plain
 versions' pattern.  The ``kernels`` line counts every launch of the main
-paths (phases 4, 5, 5c, 5d, 7, 7b and 8): eager launches, and for a
+paths (phases 4, 5, 5c, 5d, 7, 7b, 7d and 8): eager launches, and for a
 replayed graph the launches of one captured run times its replays; the
 ``crowded`` step rows carry the number of ``crowded`` steps of phase 8,
 each of which launched each of them once.  Imports nothing of JAX.
 Needs one card; stops no process it did not start (it starts
-``nvidia-smi``, ``nvcc`` and the CLI run, and waits for each).
+``nvidia-smi``, ``nvcc`` and the CLI runs, and waits for each).
 """
 
 from __future__ import annotations
@@ -1096,20 +1114,81 @@ def state_arrays(state):
     return out
 
 
+def loop_config(air):
+    """canonical_fast for ``train()`` to ``LOOP_STEPS`` in K-step chunks
+    of half that, with log, eval, save and figure points at each chunk's
+    end (phases 7 and 7d)."""
+    fast = air.get_config("canonical_fast")
+    half = LOOP_STEPS // 2
+    # the basin detector runs at step 100 and logs its statistic; the
+    # 0.0 threshold keeps random-weight runs from restarting
+    return dataclasses.replace(fast, train=dataclasses.replace(
+        fast.train, n_iters=LOOP_STEPS, scan_steps=half, log_every=half,
+        save_every=half, fig_every=half, eval_batches=2,
+        basin_detect_step=half, basin_accuracy_threshold=0.0))
+
+
+def check_loop_workdir(workdir, what):
+    """A ``LOOP_STEPS`` run's JSONL rows, periodic checkpoints and best
+    checkpoint; returns its ``best.json``."""
+    half = LOOP_STEPS // 2
+    check_loop_rows(loop_rows(workdir), half, (half, LOOP_STEPS), what)
+    best = json.loads(Path(workdir, "ckpt_best", "best.json").read_text())
+    if not Path(workdir, "ckpt_best", str(best["step"]), "state.pt").exists():
+        raise AssertionError(f"{what}: best checkpoint missing: {best}")
+    ckpts = sorted(int(p.name) for p in Path(workdir, "ckpt").iterdir()
+                   if p.name.isdigit())
+    if ckpts != [half, LOOP_STEPS]:
+        raise AssertionError(f"{what}: checkpoints {ckpts}")
+    return best
+
+
+def run_cli(workdir, *args):
+    """``python -m attend_infer_repeat_torch.train --config canonical_fast
+    --iters 2`` and ``args`` in a new process; returns its JSONL rows and
+    the command's wall."""
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "attend_infer_repeat_torch.train",
+         "--config", "canonical_fast", "--iters", "2", "--workdir", workdir,
+         "--no-tensorboard", *args], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t
+    if proc.returncode:
+        raise AssertionError(f"CLI run failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    rows = loop_rows(workdir)
+    check_loop_rows(rows, None, (2,), f"CLI run {' '.join(args)}")
+    return rows, dt
+
+
+def check_resume(air, cfg, state, workdir, **kw):
+    """``train()`` to half of ``LOOP_STEPS`` in ``workdir``, then resumed
+    to the end: parameters and optimizer state bit-equal to ``state``,
+    the uninterrupted run's."""
+    half = LOOP_STEPS // 2
+    air.train(cfg, workdir=workdir, n_iters=half, **kw)
+    again = air.train(cfg, workdir=workdir, **kw)
+    a, b = state_arrays(state), state_arrays(again)
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if differ or again.step != state.step:
+        raise AssertionError(f"resumed run differs from the "
+                             f"uninterrupted one in {differ[:5]}")
+    check_loop_rows(loop_rows(workdir), half, (half, LOOP_STEPS),
+                    "resumed run")
+    print(f"  {half} steps, then a resume to {LOOP_STEPS}: parameters "
+          f"and optimizer state ({len(a)} tensors) bit-equal to the "
+          f"uninterrupted run", flush=True)
+
+
 def loop_phase(air, st_kernel, smi):
     """``train()`` on canonical_fast at batch 1024; a resumed run against
     an uninterrupted one; then the CLI.  Returns the forward and backward
     launches of the uninterrupted run."""
     from attend_infer_repeat_torch.utils.graphs import WARMUP
 
-    fast = air.get_config("canonical_fast")
     half = LOOP_STEPS // 2
-    # the basin detector runs at step 100 and logs its statistic; the
-    # 0.0 threshold keeps random-weight runs from restarting
-    cfg = dataclasses.replace(fast, train=dataclasses.replace(
-        fast.train, n_iters=LOOP_STEPS, scan_steps=half, log_every=half,
-        save_every=half, fig_every=half, eval_batches=2,
-        basin_detect_step=half, basin_accuracy_threshold=0.0))
+    cfg = loop_config(air)
     kw = dict(use_tensorboard=False)
     with tempfile.TemporaryDirectory(prefix="air_loop_") as tmp:
         whole, resumed = os.path.join(tmp, "whole"), os.path.join(tmp, "res")
@@ -1124,15 +1203,7 @@ def loop_phase(air, st_kernel, smi):
         if counts[1] != n_bwd or counts[0] < 7 * (LOOP_STEPS + WARMUP):
             raise AssertionError(f"train(): launches {counts}, expected "
                                  f"{n_bwd} backward and 7 forward a step")
-        check_loop_rows(loop_rows(whole), half, (half, LOOP_STEPS),
-                        "uninterrupted run")
-        best = json.loads(Path(whole, "ckpt_best", "best.json").read_text())
-        if not Path(whole, "ckpt_best", str(best["step"]), "state.pt").exists():
-            raise AssertionError(f"best checkpoint missing: {best}")
-        ckpts = sorted(int(p.name) for p in Path(whole, "ckpt").iterdir()
-                       if p.name.isdigit())
-        if ckpts != [half, LOOP_STEPS]:
-            raise AssertionError(f"checkpoints {ckpts}")
+        best = check_loop_workdir(whole, "uninterrupted run")
         print(f"  train() {LOOP_STEPS} steps (canonical_fast, batch "
               f"{N_TRAIN}, K={half}, graphed): {dt:.2f} s wall with 2 "
               f"log/eval/save "
@@ -1140,32 +1211,9 @@ def loop_phase(air, st_kernel, smi):
               f"{counts[0]} forward and {counts[1]} backward launches; "
               f"best {best} on {smi}", flush=True)
 
-        air.train(cfg, workdir=resumed, n_iters=half, **kw)
-        again = air.train(cfg, workdir=resumed, **kw)
-        a, b = state_arrays(state), state_arrays(again)
-        differ = [k for k in a if not torch.equal(a[k], b[k])]
-        if differ or again.step != state.step:
-            raise AssertionError(f"resumed run differs from the "
-                                 f"uninterrupted one in {differ[:5]}")
-        check_loop_rows(loop_rows(resumed), half, (half, LOOP_STEPS),
-                        "resumed run")
-        print(f"  {half} steps, then a resume to {LOOP_STEPS}: parameters "
-              f"and optimizer state ({len(a)} tensors) bit-equal to the "
-              f"uninterrupted run", flush=True)
+        check_resume(air, cfg, state, resumed, **kw)
 
-        cli = os.path.join(tmp, "cli")
-        t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "attend_infer_repeat_torch.train",
-             "--config", "canonical_fast", "--iters", "2", "--workdir", cli,
-             "--no-tensorboard"], cwd=Path(__file__).resolve().parent,
-            capture_output=True, text=True, timeout=600)
-        dt = time.perf_counter() - t
-        if proc.returncode:
-            raise AssertionError(f"CLI run failed ({proc.returncode}):\n"
-                                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
-        rows = loop_rows(cli)
-        check_loop_rows(rows, None, (2,), "CLI run")
+        rows, dt = run_cli(os.path.join(tmp, "cli"))
         ev = next(r for r in rows if r["split"] == "eval")
         print(f"  CLI: 2 canonical_fast steps in a new process, {dt:.1f} s "
               f"wall (start-up, build cache hit, 8+8 eval batches, save); "
@@ -1646,6 +1694,330 @@ def utils_phase(air, bank):
         raise AssertionError("debug_mode did not trap the injected NaN")
 
 
+# Phase 7d: the reference workflow through the scripts' own main(argv).
+TOOLS = ("torch_create_dataset", "torch_eval_checkpoint",
+         "torch_run_variant", "torch_make_explainaway_fig")
+EVAL_BATCHES = 16       # phase 7d: the evaluator's held-out batches
+STREAM_STEPS = 50       # phase 7d: train() on the host-streamed pickle
+PACE_STEPS = 20         # phase 7d: steps per reading of the streamed pace
+# what the JAX evaluator (scripts/eval_checkpoint.py) prints of evaluate()'s
+# and of the IWAE step's metrics
+EVAL_KEYS = ["count_accuracy", "count_accuracy_mode", "elbo", "kl_steps"]
+IWAE_KEYS = ["elbo", "iwae_bound", "iwae_gap", "log_w_mean", "n_particles"]
+
+
+def load_tool(name):
+    """``scripts/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_pickle(path, n, canvas, counts):
+    """A written pickle: the reference's keys, dtypes and shapes, counts in
+    ``counts``, pixels finite in [0, 1]; returns its arrays."""
+    import pickle
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+    if sorted(blob) != ["imgs", "nums"]:
+        raise AssertionError(f"{path}: keys {sorted(blob)}")
+    imgs, nums = blob["imgs"], blob["nums"]
+    if imgs.dtype != np.float32 or imgs.shape != (n, canvas, canvas) or \
+            nums.dtype != np.int32 or nums.shape != (n,):
+        raise AssertionError(f"{path}: imgs {imgs.dtype} {imgs.shape}, "
+                             f"nums {nums.dtype} {nums.shape}")
+    if not (counts[0] <= nums.min() and nums.max() <= counts[1]):
+        raise AssertionError(f"{path}: counts {nums.min()}..{nums.max()}")
+    if not (np.isfinite(imgs).all() and imgs.min() >= 0.0
+            and imgs.max() <= 1.0):
+        raise AssertionError(f"{path}: pixels not finite in [0, 1]")
+    return imgs, nums
+
+
+def host_ms(fn, n):
+    """Mean wall of ``fn()`` over ``n`` calls, the card synchronized
+    before and after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e3
+
+
+def workflow_phase(air, st_kernel, smi, bank):
+    """The reference workflow, in process through each script's
+    ``main(argv)`` at ``canonical_fast``'s batch of 1024: write the
+    dataset pickles at their defaults; ``train()`` from them, resident
+    (with a bit-equal resume) and streamed; the CLI with ``--data``; the
+    evaluator (latest with ``--iwae``, and ``--best``); the override
+    runner; the explain-away selection.  Returns the phase's forward and
+    backward launches."""
+    from attend_infer_repeat_torch.data import load_data
+    from attend_infer_repeat_torch.data.loader import InMemoryDataset
+    from attend_infer_repeat_torch.utils.graphs import WARMUP
+
+    tools = {name: load_tool(name) for name in TOOLS}
+    fast = air.get_config("canonical_fast")
+    cfg = loop_config(air)
+    half = LOOP_STEPS // 2
+    steps_fwd, steps_bwd = 2 * fast.model.max_steps, 2 * fast.model.max_steps
+    total = [0, 0]
+
+    def take():
+        """The launches since the last call, added to the phase's."""
+        counts = (st_kernel.launches, st_kernel.bwd_launches)
+        total[0] += counts[0]
+        total[1] += counts[1]
+        st_kernel.launches = st_kernel.bwd_launches = 0
+        return counts
+
+    t_phase = time.perf_counter()
+    st_kernel.launches = st_kernel.bwd_launches = 0
+    with tempfile.TemporaryDirectory(prefix="air_workflow_") as tmp:
+        # (a) the dataset writer at its defaults: one synthesis graph per
+        # split, a replay (one paste launch) per chunk of 4096
+        data = os.path.join(tmp, "data")
+        written, dt = timed(tools["torch_create_dataset"].main,
+                            ["--outdir", data])
+        calls = math.ceil(60_000 / 4096) + math.ceil(10_000 / 4096)
+        counts = take()
+        if counts != (calls + 2 * WARMUP, 0):
+            raise AssertionError(f"dataset writer: launches {counts}, "
+                                 f"expected {calls} calls and the 2 "
+                                 f"graphs' {2 * WARMUP} warm-up runs")
+        train_pk = written["mnist_train"]["path"]
+        val_pk = written["mnist_validation"]["path"]
+        train_imgs, _ = check_pickle(train_pk, 60_000, 50, (0, 2))
+        val_imgs, _ = check_pickle(val_pk, 10_000, 50, (0, 2))
+        print(f"  dataset writer (60,000 + 10,000 canvases 50x50, 0-2 "
+              f"digits, chunk 4096): {dt:.2f} s wall; {calls} synthesis "
+              f"calls, {counts[0]} paste launches ({2 * WARMUP} of them "
+              f"the 2 graphs' warm-ups); mnist_train.pickle "
+              f"{os.path.getsize(train_pk) / 1e6:.1f} MB, count histogram "
+              f"{written['mnist_train']['histogram']}; "
+              f"mnist_validation.pickle {os.path.getsize(val_pk) / 1e6:.1f} "
+              f"MB, {written['mnist_validation']['histogram']}", flush=True)
+        again = os.path.join(tmp, "again")
+        tools["torch_create_dataset"].main(["--outdir", again,
+                                            "--n-train", "4096"])
+        take()
+        re_train, _ = check_pickle(os.path.join(again, "mnist_train.pickle"),
+                                   4096, 50, (0, 2))
+        re_val, _ = check_pickle(
+            os.path.join(again, "mnist_validation.pickle"), 10_000, 50,
+            (0, 2))
+        if re_val.tobytes() != val_imgs.tobytes() or \
+                re_train.tobytes() != train_imgs[:4096].tobytes():
+            raise AssertionError("a second write with the same seed differs")
+        print("  a second write with the same --seed: the validation "
+              "split and the first train chunk byte-equal", flush=True)
+        del train_imgs, val_imgs, re_train, re_val
+
+        # (b) train() from the pickles, resident: the phase 7 schedule
+        kw = dict(use_tensorboard=False, data_path=train_pk,
+                  eval_data_path=val_pk)
+        whole = os.path.join(tmp, "whole")
+        state, dt = timed(air.train, cfg, workdir=whole, **kw)
+        counts = take()
+        # one chunk graph: 6 forward and 6 backward launches a step (no
+        # synthesis paste), the log points' forwards on top
+        n_steps = LOOP_STEPS + WARMUP
+        if state.step != LOOP_STEPS or counts[1] != steps_bwd * n_steps or \
+                counts[0] < steps_fwd * n_steps:
+            raise AssertionError(f"resident train(): step {state.step}, "
+                                 f"launches {counts}")
+        best = check_loop_workdir(whole, "resident run")
+        print(f"  train() from the pickles, resident, {LOOP_STEPS} steps "
+              f"(K={half}): {dt:.2f} s wall (the pickles' load and the "
+              f"dataset's copy to the card included); {counts[0]} forward "
+              f"and {counts[1]} backward launches; best {best}", flush=True)
+        check_resume(air, cfg, state, os.path.join(tmp, "res"), **kw)
+        take()
+
+        # steady wall per step: the resident chunk against the
+        # synthesis-fed one (phase 7's data), in turns
+        blob = load_data(train_pk)
+        device_data = (torch.from_numpy(blob["imgs"]).cuda(),
+                       torch.from_numpy(blob["nums"]).cuda())
+        k = fast.train.scan_steps
+        chunks, walls = {}, {"resident": [], "synthesis": []}
+        for name in walls:
+            st = air.create_train_state(fast, seed=11)
+            scan = air.make_scan_train_step(
+                fast, st.model, None if name == "resident" else bank, k,
+                device_data=device_data if name == "resident" else None)
+            scan(st)                        # capture, then K replays
+            chunks[name] = (st, scan)
+        for name in ("synthesis", "resident", "resident", "synthesis") * 2:
+            st, scan = chunks[name]
+            (_, rows), dt = timed(scan, st)
+            check_metrics(rows, f"{name} chunk")
+            walls[name].append(dt / k * 1e3)
+        counts = take()
+        n_steps = WARMUP + 5 * k
+        want = ((steps_fwd + 1) * n_steps + steps_fwd * n_steps,
+                2 * steps_bwd * n_steps)
+        if counts != want:
+            raise AssertionError(f"chunks in turns: launches {counts}, "
+                                 f"expected {want}")
+        res, syn = (statistics.median(walls[n])
+                    for n in ("resident", "synthesis"))
+        print(f"  steady step wall, graphed chunks of {k} in turns "
+              f"(medians of 4): resident pickle {res:.3f} ms "
+              f"({', '.join(f'{w:.3f}' for w in walls['resident'])}), "
+              f"synthesis-fed {syn:.3f} ms "
+              f"({', '.join(f'{w:.3f}' for w in walls['synthesis'])}); "
+              f"resident / synthesis {res / syn:.3f}; batch {N_TRAIN} on "
+              f"{smi}", flush=True)
+        del chunks, device_data
+
+        # (c) train() streamed: a host batch copied in per step
+        streamed = os.path.join(tmp, "streamed")
+        state, dt = timed(air.train, cfg, workdir=streamed,
+                          n_iters=STREAM_STEPS, resident_data=False, **kw)
+        counts = take()
+        n_steps = STREAM_STEPS + WARMUP
+        if state.step != STREAM_STEPS or counts[1] != steps_bwd * n_steps:
+            raise AssertionError(f"streamed train(): step {state.step}, "
+                                 f"launches {counts}")
+        check_loop_rows(loop_rows(streamed), half,
+                        sorted({*range(half, STREAM_STEPS, half),
+                                STREAM_STEPS}), "streamed run")
+        print(f"  train() streamed, {STREAM_STEPS} steps: {dt:.2f} s wall "
+              f"({dt / STREAM_STEPS * 1e3:.1f} ms a step with the "
+              f"pickles' load, the capture and a log point); {counts[0]} "
+              f"forward and {counts[1]} backward launches", flush=True)
+        # what sets the streamed pace: the host's batch assembly, the
+        # copy of 1024 x 50 x 50 x 4 B to the card, or the step's graph
+        batches = InMemoryDataset(blob["imgs"], blob["nums"]).batches(
+            N_TRAIN, seed=5)
+        st = air.create_train_state(fast, seed=12)
+        step = air.make_train_step(fast, st.model)
+        host = tuple(torch.from_numpy(a) for a in next(batches))
+        on_card = tuple(t.cuda() for t in host)
+        step(st, on_card)                   # capture
+        assembly = host_ms(lambda: next(batches), PACE_STEPS)
+        buf = torch.empty_like(on_card[0])
+        copy = host_ms(lambda: buf.copy_(host[0].pin_memory(),
+                                         non_blocking=True), PACE_STEPS)
+        graph = host_ms(lambda: step(st, on_card), PACE_STEPS)
+        whole_step = host_ms(lambda: step(st, next(batches)), PACE_STEPS)
+        take()
+        parts = {"the host's batch assembly": assembly,
+                 "the copy to the card (pinning included)": copy,
+                 "the step's graph": graph}
+        pace = max(parts, key=parts.get)
+        print(f"  streamed pace, means of {PACE_STEPS}: a streamed step "
+              f"{whole_step:.3f} ms; its parts alone: batch assembly "
+              f"(numpy gather of {N_TRAIN} rows) {assembly:.3f} ms, pinned "
+              f"copy of {host[0].numel() * 4 / 1e6:.2f} MB {copy:.3f} ms, "
+              f"the graph on a batch already on the card {graph:.3f} ms: "
+              f"{pace} sets the pace", flush=True)
+        del blob, batches, host, on_card, buf
+
+        # (d) the CLI on the pickles, in a new process
+        rows, dt = run_cli(os.path.join(tmp, "cli"), "--data", train_pk,
+                           "--eval-data", val_pk)
+        print(f"  CLI --data/--eval-data: 2 steps in a new process, "
+              f"{dt:.1f} s wall; eval elbo "
+              f"{next(r for r in rows if r['split'] == 'eval')['elbo']:.2f}",
+              flush=True)
+
+        # (e) the evaluator on (b)'s run: latest with --iwae, then --best
+        evaluator = tools["torch_eval_checkpoint"]
+        for extra, step_no in ((["--iwae"], LOOP_STEPS),
+                               (["--best"], best["step"])):
+            out, dt = timed(evaluator.main, [
+                "--config", "canonical_fast", "--workdir", whole,
+                "--batches", str(EVAL_BATCHES), *extra])
+            counts = take()
+            iwae = "--iwae" in extra
+            # a graph per entry point: its warm-up runs, then a replay a
+            # call (synthesis: one paste; eval, IWAE: a forward)
+            want = (EVAL_BATCHES + iwae + WARMUP
+                    + steps_fwd * (2 * EVAL_BATCHES + WARMUP)
+                    + steps_fwd * (WARMUP + 1) * iwae, 0)
+            total_n = int(out["confusion"]["confusion"].sum())
+            shown = {**out["eval"], **(out["iwae"] or {})}
+            if out["restored_step"] != step_no or \
+                    total_n != EVAL_BATCHES * N_TRAIN or \
+                    sorted(out["eval"]) != EVAL_KEYS or \
+                    (iwae and sorted(out["iwae"]) != IWAE_KEYS) or \
+                    not all(math.isfinite(v) for v in shown.values()) or \
+                    counts != want:
+                raise AssertionError(
+                    f"evaluator {extra}: step {out['restored_step']} "
+                    f"(expected {step_no}), confusion total {total_n}, "
+                    f"keys {sorted(shown)}, launches {counts} (expected "
+                    f"{want})")
+            sec = out["seconds"]
+            print(f"  evaluator {' '.join(extra)}: restored step "
+                  f"{step_no}, confusion total {total_n}, {dt:.2f} s "
+                  f"wall; eval pass {sec['evaluate']:.3f} s "
+                  f"({EVAL_BATCHES * N_TRAIN / sec['evaluate']:.1f} img/s), "
+                  f"confusion pass {sec['confusion']:.3f} s"
+                  + (f", IWAE {sec['iwae']:.3f} s" if iwae else "")
+                  + f"; {counts[0]} forward launches", flush=True)
+
+        # (f) the override runner
+        variant = os.path.join(tmp, "variant")
+        state, dt = timed(tools["torch_run_variant"].main, [
+            "--config", "canonical_fast", "--workdir", variant,
+            "--model-set", "remat=False", "--train-set", "scan_steps=50",
+            "--iters", "100"])
+        counts = take()
+        if state.step != 100 or state.model.cfg.remat is not False or \
+                counts[1] != steps_bwd * (100 + WARMUP):
+            raise AssertionError(f"override runner: step {state.step}, "
+                                 f"remat {state.model.cfg.remat}, "
+                                 f"launches {counts}")
+        check_loop_rows(loop_rows(variant), None, (100,), "override runner")
+        print(f"  override runner (remat=False, scan_steps=50, 100 steps): "
+              f"{dt:.2f} s wall, remat {state.model.cfg.remat}; "
+              f"{counts[0]} forward and {counts[1]} backward launches",
+              flush=True)
+
+        # (g) the explain-away selection on (b)'s checkpoint
+        figure = tools["torch_make_explainaway_fig"]
+        args = figure.parse_args(["--config", "canonical_fast",
+                                  "--workdir", whole, "--out",
+                                  os.path.join(tmp, "explain_away.png")])
+        scenes = figure.find_scenes(args)
+        take()
+        if scenes["restored_step"] != LOOP_STEPS:
+            raise AssertionError(f"explain-away: restored step "
+                                 f"{scenes['restored_step']}")
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            try:
+                figure.render(scenes, args.out)
+            except ImportError as e:
+                rendered = f"render raised ImportError ({e})"
+            else:
+                raise AssertionError("the render did not raise without "
+                                     "matplotlib")
+        else:
+            rendered = "render not held: matplotlib is installed"
+            if len(scenes["sel"]):
+                rendered = f"rendered {figure.render(scenes, args.out)}"
+        print(f"  explain-away: {len(scenes['sel'])} scenes of "
+              f"{args.batch} selected (IoU >= {args.min_iou}); {rendered}",
+              flush=True)
+    print(f"  phase 7d: {time.perf_counter() - t_phase:.1f} s wall; "
+          f"{total[0]} forward and {total[1]} backward launches",
+          flush=True)
+    return tuple(total)
+
+
 # Phase 8: every training preset but canonical_fast (phases 5-7), each at
 # its own batch, widths, canvas and dtype mix, K steps a chunk.
 PRESET_K = 4
@@ -1910,6 +2282,12 @@ def main() -> int:
     print("[7c] utils: a trace of a graphed chunk, the NaN trap", flush=True)
     utils_phase(air, bank)
 
+    print("[7d] the reference workflow: dataset pickles, train() from them "
+          "(resident, streamed), the CLI, the evaluator, the override "
+          "runner, the explain-away selection", flush=True)
+    workflow_launches, workflow_bwd_launches = workflow_phase(
+        air, st_kernel, smi, bank)
+
     print(f"[8] every other training preset at full width: K = {PRESET_K} "
           f"steps graphed against eager", flush=True)
     (preset_launches, preset_bwd_launches), preset_shapes, (
@@ -1954,13 +2332,13 @@ def main() -> int:
         kernel_line("st_gather", "st_gather.cu", 54,
                     launches + train_launches + graph_launches
                     + entry_launches + loop_launches + mesh_launches
-                    + preset_launches,
+                    + workflow_launches + preset_launches,
                     rows + step_rows + crowded_rows,
                     lambda c, n: (c, n) == ("gather 50x50->20x20", N_SERVE)),
         kernel_line("st_gather_bwd", "st_gather_bwd.cu", 155,
                     bwd_launches + graph_bwd_launches + entry_bwd_launches
                     + loop_bwd_launches + mesh_bwd_launches
-                    + preset_bwd_launches,
+                    + workflow_bwd_launches + preset_bwd_launches,
                     bwd_rows + step_bwd_rows + crowded_bwd_rows,
                     lambda c, n: c.startswith("step paste bwd")),
     ]

@@ -45,7 +45,8 @@ def test_port_imports_no_jax():
     # and what runs on the card's machine, which has no JAX
     files += [ROOT / "chip_smoke.py", *sorted(ROOT.glob("scripts/torch_*.py")),
               ROOT / "tests" / "test_torch_st_kernel_cuda.py",
-              ROOT / "tests" / "helpers" / "torch_train_kill_helper.py"]
+              ROOT / "tests" / "helpers" / "torch_train_kill_helper.py",
+              ROOT / "tests" / "helpers" / "torch_no_jax_helper.py"]
     assert len(files) > 10
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
