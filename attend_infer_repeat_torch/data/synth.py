@@ -63,12 +63,16 @@ def sample_draws(cfg: DataConfig, batch: int, n_bank: int,
 
 def synthesize_batch(digit_bank: torch.Tensor, cfg: DataConfig, batch: int,
                      generator: Optional[torch.Generator] = None,
-                     draws: Optional[Dict[str, torch.Tensor]] = None):
+                     draws: Optional[Dict[str, torch.Tensor]] = None,
+                     return_meta: bool = False):
     """``(imgs (batch, H, W) float32, nums (batch,) int32)``.
 
     ``digit_bank (N, dh, dw)`` float32 in [0, 1] on the target device.
     ``draws`` (as ``sample_draws`` returns them) injects the random
-    numbers; otherwise they come from ``generator``.
+    numbers; otherwise they come from ``generator``.  With ``return_meta``
+    also a dict of each slot's placement, ``(batch, slots)`` float32 each:
+    the normalized half-extents ``sx``/``sy``, the centers ``tx``/``ty``
+    and the ``present`` mask (for the overlap analyses).
     """
     ch, cw = cfg.canvas_size
     dh, dw = cfg.digit_size
@@ -95,6 +99,9 @@ def synthesize_batch(digit_bank: torch.Tensor, cfg: DataConfig, batch: int,
     pastes = st_paste(glimpses, z_where, (ch, cw))               # (B, T, H, W)
     imgs = torch.clamp(torch.sum(pastes * present[..., None, None], dim=1),
                        0.0, 1.0)
+    if return_meta:
+        return imgs, nums.to(torch.int32), {"sx": sx, "sy": sy, "tx": tx,
+                                            "ty": ty, "present": present}
     return imgs, nums.to(torch.int32)
 
 

@@ -94,6 +94,29 @@ Phases, in order (any failure raises and exits non-zero):
    ``scan_steps=50``; ``scripts/torch_make_explainaway_fig.py``'s
    selection on the resident run, and its render's ``ImportError``
    without matplotlib;
+7e. the analysis tools, through each tool's ``main(argv)`` in this
+   process, in a temporary directory: ``train()`` of
+   ``canonical_uniform28`` and ``iwae`` to 200 steps for their
+   checkpoints; ``scripts/torch_characterize_overlap.py`` at its defaults
+   (three presets, 65,536 canvases each, synthesized in chunks of 8192);
+   ``torch_analyze_overlap_errors.py`` on the u28 checkpoint (16 × 1024
+   held-out scenes); ``torch_supervised_ceiling.py`` for 200 steps, its
+   ``CountCNN`` train step graphed against 4 eager steps from one state
+   and one generator state and its graphed ``predict`` against eager,
+   bit-equal; ``torch_iwae_ksweep.py`` at k = 1, 5, 25, then k = 64 on one
+   batch (the gather at N = 65,536); ``torch_parity_check.py`` at
+   ``canonical`` batch 16, the CPU against the card held to phase 4's
+   limits of the kernel path against the plain ST (canvas ≤ 1e-4, ELBO
+   rel ≤ 1e-5, on the examples whose presence agrees), and its
+   comparison at ``canonical_fast`` batch 1024, whose bf16 roundings
+   differ between the devices: reported beside each device's distance
+   from the same forward in f32, not held;
+   ``torch_ablate_canonical.py`` and
+   ``torch_probe_u28.py`` for one variant each at 20 steps; each tool's
+   wall and launches by shape; then both kernels against plain and timed
+   on the IWAE forward's own inputs at k = 25 and 64 and on the uniform
+   presets' synthesis pastes at N = 16384, each of whose shapes the phase
+   must have launched;
 8. every other training preset (``PRESET_LAUNCHES``: ``crowded``,
    ``iwae_trained``, ``iwae``, ``canonical_uniform``,
    ``canonical_uniform28``, ``single_digit``, ``canonical``, ``no_nvil``)
@@ -113,14 +136,15 @@ Phases, in order (any failure raises and exits non-zero):
    16×16→100×100 at N = 5×1024, their backwards), against plain and
    timed, as phase 5b; each of those shapes must have been launched in
    phase 8;
-9. a ``kernels`` JSON line (with phase 8's launches by shape), then the
+9. a ``kernels`` JSON line (with the launches by shape of phases 7e and
+   8), then the
    last line
    ``{"ok": true, "device": {...}}``.
 
 Phases 3 and 3b include the ``crowded`` preset's 100×100 canvas, and a
 NaN and an infinity in the image and the cotangent against the plain
 versions' pattern.  The ``kernels`` line counts every launch of the main
-paths (phases 4, 5, 5c, 5d, 7, 7b, 7d and 8): eager launches, and for a
+paths (phases 4, 5, 5c, 5d, 7, 7b, 7d, 7e and 8): eager launches, and for a
 replayed graph the launches of one captured run times its replays; the
 ``crowded`` step rows carry the number of ``crowded`` steps of phase 8,
 each of which launched each of them once.  Imports nothing of JAX.
@@ -130,6 +154,7 @@ Needs one card; stops no process it did not start (it starts
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -282,8 +307,14 @@ def grid_sample_gather(img, zw, out_shape):
     theta[:, 0, 0], theta[:, 0, 2] = zw[:, 0], zw[:, 2]
     theta[:, 1, 1], theta[:, 1, 2] = zw[:, 1], zw[:, 3]
     grid = F.affine_grid(theta, (n, 1) + tuple(out_shape), align_corners=True)
-    return F.grid_sample(img[:, None], grid, mode="bilinear",
-                         padding_mode="zeros", align_corners=True)[:, 0]
+    # cuDNN's grid sampler takes N < 65536; PyTorch's own kernel the rest
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = enabled and n < 65536
+    try:
+        return F.grid_sample(img[:, None], grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)[:, 0]
+    finally:
+        torch.backends.cudnn.enabled = enabled
 
 
 def tap_support(zw, in_shape, out_shape):
@@ -968,12 +999,10 @@ def rows_of(rows):
     return {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
 
 
-def step_kernel_phase(st_kernel, state, step, bw, f32_peak, label="step"):
-    """One more train step with every kernel call's inputs recorded, then
-    each kernel against plain and timed on exactly those inputs: the
-    windows, images and cotangents that the step really gives them.
-    Returns the forward and backward rows, in the order of the calls,
-    each named after ``label``."""
+def record_kernel_calls(st_kernel, run):
+    """``run()`` eagerly (``utils.debug_mode``: a replay would call no
+    wrapper) with every kernel call's inputs recorded; returns the calls
+    ``(kind, img, zw, g, out_shape, need_img)`` in order."""
     from attend_infer_repeat_torch.utils import debug_mode
 
     calls = []
@@ -993,16 +1022,26 @@ def step_kernel_phase(st_kernel, state, step, bw, f32_peak, label="step"):
     st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda = (record_fwd,
                                                               record_bwd)
     try:
-        with debug_mode(nans=False):     # a replay would call no wrapper
-            step(state)
+        with debug_mode(nans=False):
+            run()
     finally:
         st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda = kernels
     torch.cuda.synchronize()
+    return calls
+
+
+STEP_KINDS = {(16, 16): "synth paste", (20, 20): "paste"}
+
+
+def kernel_call_rows(st_kernel, calls, label, bw, f32_peak, kinds=STEP_KINDS):
+    """Each kernel against plain and timed on exactly the inputs of
+    ``calls`` (``record_kernel_calls``); returns the forward and backward
+    rows in call order, each named after ``label`` and its input shape's
+    entry in ``kinds`` (else "gather")."""
     rows = {"fwd": [], "bwd": []}
     for kind, img, zw, g, out_shape, need_img in calls:
         n, h, w = img.shape
-        what = {(16, 16): "synth paste", (20, 20): "paste"}.get((h, w),
-                                                                "gather")
+        what = kinds.get((h, w), "gather")
         name = (f"{label} {what}{' bwd' if kind == 'bwd' else ''} "
                 f"{h}x{w}->{out_shape[0]}x{out_shape[1]}"
                 f"{'' if need_img is not False else ', g_zw only'} "
@@ -1020,6 +1059,18 @@ def step_kernel_phase(st_kernel, state, step, bw, f32_peak, label="step"):
                                           out_shape, need_img, bw, f32_peak)
         print(msg, flush=True)
         rows[kind].append(row)
+    return rows["fwd"], rows["bwd"]
+
+
+def step_kernel_phase(st_kernel, state, step, bw, f32_peak, label="step"):
+    """One more train step with every kernel call's inputs recorded, then
+    each kernel against plain and timed on exactly those inputs: the
+    windows, images and cotangents that the step really gives them.
+    Returns the forward and backward rows, in the order of the calls,
+    each named after ``label``."""
+    calls = record_kernel_calls(st_kernel, lambda: step(state))
+    rows = dict(zip(("fwd", "bwd"), kernel_call_rows(
+        st_kernel, calls, label, bw, f32_peak)))
     for kind, kind_label in (("fwd", "forward"), ("bwd", "backward")):
         rs = rows[kind]
         print(f"  the {label}'s {len(rs)} {kind_label} launches: kernel "
@@ -2018,6 +2069,270 @@ def workflow_phase(air, st_kernel, smi, bank):
     return tuple(total)
 
 
+# Phase 7e: the analysis tools through their main(argv).
+ANALYSIS_STEPS = 200    # phase 7e: train() of the tools' checkpoints
+CEILING_STEPS = 200     # phase 7e: the supervised ceiling's train steps
+GRAPH_CHECK_STEPS = 4   # phase 7e: CountCNN steps graphed against eager
+VARIANT_STEPS = 20      # phase 7e: the ablation and probe runs
+# phase 7e: the CPU against the card holds the limits of the kernel path
+# against the plain ST (phase 4): canvas max abs err, ELBO max rel err
+PARITY_LIMITS = (1e-4, 1e-5)
+# the synthesis pastes that phase 7e times (tool 2's chunk of 8192 canvases
+# of each uniform preset): the preset and its digits' input shape
+SYNTH_ROWS = {"canonical_uniform": (20, 20), "canonical_uniform28": (28, 28)}
+
+
+def shapes_text(counter):
+    """``st_kernel.shape_launches`` (or a part of it) as short text."""
+    return ", ".join(f"{'bwd ' if k == 'st_gather_bwd' else ''}{h}x{w}->"
+                     f"{oh}x{ow} N={n}: {c}"
+                     for (k, n, h, w, oh, ow), c in sorted(counter.items()))
+
+
+def parity_gap(outs):
+    """The CPU against the card (``torch_parity_check.parity``'s outputs)
+    on the examples whose presence agrees: canvas max abs err and ELBO
+    max rel err (``|card - cpu| / max(1, |cpu|)``, as phase 4 measures
+    the kernel against the plain ST)."""
+    import numpy as np
+
+    cpu, dev = outs["cpu"], outs["device"]
+    match = (cpu["pres"] == dev["pres"]).all(axis=-1)
+    canvas = float(np.max(np.abs(dev["canvas"] - cpu["canvas"])[match],
+                          initial=0.0))
+    elbo = float(np.max((np.abs(dev["elbo"] - cpu["elbo"])
+                         / np.maximum(np.abs(cpu["elbo"]), 1.0))[match],
+                        initial=0.0))
+    return canvas, elbo
+
+
+def f32_gaps(parity, air, cfg, outs, batch):
+    """``parity_gap`` of the same forward computed in f32 on the CPU (bf16
+    compute and canvas carry off) against the CPU's and against the card's
+    bf16 forward (``outs``): how far bf16 rounding moves each device's
+    outputs."""
+    model, imgs, noise = parity.parity_inputs(cfg, batch)
+    f32 = air.AIRModel(dataclasses.replace(
+        cfg.model, dtype="float32", canvas_carry_dtype="float32"),
+        device="cpu", seed=0)
+    f32.load_state_dict(model.state_dict())
+    ref = parity.forward_outputs(f32, imgs, noise)
+    return (parity_gap({"cpu": ref, "device": outs["cpu"]}),
+            parity_gap({"cpu": ref, "device": outs["device"]}))
+
+
+def ceiling_graph_check(tool, air, bank):
+    """``CountCNN``'s train step graphed against the same steps eager
+    (``utils.debug_mode``) from one initialization and one generator
+    state, and graphed ``predict`` against eager: bit-equal parameters,
+    optimizer state, losses, accuracies, generator state and counts."""
+    from attend_infer_repeat_torch.utils import debug_mode
+
+    cfg = air.get_config("canonical_uniform28")
+    gen = torch.Generator("cuda").manual_seed(7)
+    start = gen.get_state()
+    runs = {}
+    for name in ("graphed", "eager"):
+        gen.set_state(start)
+        model = tool.CountCNN(cfg.data.max_digits + 1, seed=3)
+        opt = tool.make_optimizer(model, 3e-4)
+        step = tool.make_train_step(model, opt, cfg.data, bank, 512)
+        with debug_mode(nans=False) if name == "eager" else \
+                contextlib.nullcontext():
+            rows = [step(gen) for _ in range(GRAPH_CHECK_STEPS)]
+        runs[name] = (model, tool.optimizer_tensors(opt), rows,
+                      gen.get_state(), step)
+    (m_g, o_g, r_g, s_g, step_g), (m_e, o_e, r_e, s_e, _) = (
+        runs["graphed"], runs["eager"])
+    differ = [k for (k, a), b in zip(m_g.state_dict().items(),
+                                     m_e.state_dict().values())
+              if not torch.equal(a, b)]
+    differ += [f"optimizer state {i}" for i, (a, b) in enumerate(zip(o_g, o_e))
+               if not torch.equal(a, b)]
+    differ += [f"step {i} {what}" for i, (a, b) in enumerate(zip(r_g, r_e))
+               for what, x, y in zip(("loss", "accuracy"), a, b)
+               if not torch.equal(x, y)]
+    if not torch.equal(s_g, s_e):
+        differ.append("generator state")
+    imgs = air.synthesize_batch(bank, cfg.data, 1024, gen)[0]
+    predict = tool.make_predict(m_g)
+    graphed = [predict(imgs) for _ in range(2)]
+    with debug_mode(nans=False):
+        eager = predict(imgs)
+    if not all(torch.equal(g, eager) for g in graphed):
+        differ.append("predict")
+    if differ:
+        raise AssertionError(f"CountCNN graphed against eager: {differ}")
+    pools = step_g.graph().pool_bytes + sum(
+        e.graph.pool_bytes for e in predict.graphs.values())
+    print(f"  CountCNN: {GRAPH_CHECK_STEPS} train steps at batch 512 "
+          f"graphed and eager from one state and generator state, "
+          f"bit-equal (parameters, Adam state, losses {float(r_g[-1][0]):.4f}"
+          f", generator); predict at 1024 bit-equal; graph pools "
+          f"{pools / 2**20:.1f} MiB", flush=True)
+
+
+def analysis_phase(air, st_kernel, smi, bw, f32_peak):
+    """The analysis tools in process through each script's ``main(argv)``,
+    in a temporary directory: ``train()`` of ``canonical_uniform28`` and
+    ``iwae`` to ``ANALYSIS_STEPS``; the overlap characterization at its
+    defaults; the overlap-error bins on the u28 checkpoint; the supervised
+    ceiling (its graphs held to eager first); the IWAE k-sweep at k = 1, 5,
+    25 and 64; the CPU↔card parity check at ``canonical`` batch 16, held
+    to ``PARITY_LIMITS``, and at ``canonical_fast`` batch 1024, reported
+    beside each device's distance from the f32 forward; one ablation and
+    one probe variant.  Then both kernels against plain and timed on
+    the IWAE forward's inputs at k = 25 and 64 and on the uniform presets'
+    synthesis pastes.  Returns the phase's forward and backward launches,
+    its launches by shape, and the timed rows."""
+    from attend_infer_repeat_torch.data import load_digit_bank
+    from attend_infer_repeat_torch.ops.math import seeded_generator
+
+    tools = {name: load_tool(f"torch_{name}") for name in (
+        "characterize_overlap", "analyze_overlap_errors",
+        "supervised_ceiling", "iwae_ksweep", "parity_check",
+        "ablate_canonical", "probe_u28")}
+    total = [0, 0]
+    st_kernel.shape_launches.clear()
+
+    def run(what, fn, *args, **kw):
+        """``fn`` timed, with its launches by shape printed and added."""
+        before = collections.Counter(st_kernel.shape_launches)
+        counts = (st_kernel.launches, st_kernel.bwd_launches)
+        out, dt = timed(fn, *args, **kw)
+        fwd = st_kernel.launches - counts[0]
+        bwd = st_kernel.bwd_launches - counts[1]
+        total[0] += fwd
+        total[1] += bwd
+        shapes = shapes_text(st_kernel.shape_launches - before)
+        print(f"  {what}: {dt:.2f} s wall; {fwd} forward and {bwd} "
+              f"backward launches ({shapes})", flush=True)
+        return out
+
+    t_phase = time.perf_counter()
+    st_kernel.launches = st_kernel.bwd_launches = 0
+    with tempfile.TemporaryDirectory(prefix="air_analysis_") as tmp:
+        workdirs = {}
+        for name in ("canonical_uniform28", "iwae"):
+            workdirs[name] = os.path.join(tmp, name)
+            state = run(f"train() {name} to {ANALYSIS_STEPS}", air.train,
+                        name, workdir=workdirs[name], n_iters=ANALYSIS_STEPS,
+                        use_tensorboard=False)
+            if state.step != ANALYSIS_STEPS:
+                raise AssertionError(f"{name}: step {state.step}")
+
+        rows = run("overlap characterization (3 presets, n = 65,536)",
+                   tools["characterize_overlap"].main,
+                   ["--out", os.path.join(tmp, "overlap.json")])
+        if [r["n_scenes"] for r in rows] != [65536] * 3 or \
+                not all(r["n_multi_scenes"] > 0 for r in rows):
+            raise AssertionError(f"overlap characterization: {rows}")
+
+        out = run("overlap errors (canonical_uniform28, 16 x 1024)",
+                  tools["analyze_overlap_errors"].main,
+                  ["--workdir", workdirs["canonical_uniform28"], "--out",
+                   os.path.join(tmp, "errors.json")])
+        if out["step"] != ANALYSIS_STEPS or out["n_scenes"] != 16 * 1024 or \
+                sum(r["n_scenes"] for r in out["bins"]) != 16 * 1024:
+            raise AssertionError(f"overlap errors: {out}")
+
+        ceiling = tools["supervised_ceiling"]
+        bank = load_digit_bank("auto", (28, 28))[0].cuda()
+        with ceiling.f32_exact():
+            run("CountCNN graphs against eager", ceiling_graph_check,
+                ceiling, air, bank)
+        out = run(f"supervised ceiling ({CEILING_STEPS} steps)", ceiling.main,
+                  ["--steps", str(CEILING_STEPS), "--out",
+                   os.path.join(tmp, "ceiling.json")])
+        if out["n_scenes"] != 16 * 1024 or \
+                not 0.0 <= out["supervised_accuracy"] <= 1.0:
+            raise AssertionError(f"supervised ceiling: {out}")
+
+        sweep = tools["iwae_ksweep"]
+        for extra in (["--ks", "1", "5", "25"], ["--ks", "64", "--batches",
+                                                 "1"]):
+            out = run(f"IWAE k-sweep {' '.join(extra)}", sweep.main,
+                      ["--workdir", workdirs["iwae"], *extra])
+            if not all(math.isfinite(r["iwae_bound"]) for r in out["rows"]):
+                raise AssertionError(f"IWAE k-sweep: {out}")
+
+        # the CPU against the card: canonical (f32) through the tool's
+        # command line, held to the kernel path's limits
+        parity = tools["parity_check"]
+        res = run("parity check canonical batch 16", parity.main,
+                  ["--config", "canonical", "--batch", "16"])
+        canvas, elbo = parity_gap(res["outputs"])
+        print(f"  CPU against the card, canonical batch 16: presence "
+              f"agreement {res['pres_agreement']:.4f}, canvas max abs err "
+              f"{canvas:.3g}, elbo max rel err {elbo:.3g} (limits "
+              f"{PARITY_LIMITS[0]}, {PARITY_LIMITS[1]}) on {smi}", flush=True)
+        if not (canvas <= PARITY_LIMITS[0] and elbo <= PARITY_LIMITS[1]):
+            raise AssertionError(f"parity canonical: canvas {canvas}, elbo "
+                                 f"{elbo} outside {PARITY_LIMITS}")
+        # canonical_fast at its batch: its bf16 matmuls round where the
+        # two devices' f32 accumulators differ; the gap is reported beside
+        # each device's distance from the f32 forward (PERF.md), not held
+        fast = air.get_config("canonical_fast")
+        outs = run("parity canonical_fast batch 1024", parity.parity, fast,
+                   1024)
+        res = parity.compare(outs["cpu"], outs["device"], 2e-2, 2e-2)
+        gap = parity_gap(outs)
+        cpu_f32, card_f32 = f32_gaps(parity, air, fast, outs, 1024)
+        within = gap[0] <= PARITY_LIMITS[0] and gap[1] <= PARITY_LIMITS[1]
+        print(f"  CPU against the card, canonical_fast batch 1024: presence "
+              f"agreement {res['pres_agreement']:.4f}, canvas max abs err "
+              f"{gap[0]:.3g}, elbo max rel err {gap[1]:.3g} "
+              f"({'within' if within else 'outside'} the kernel path's "
+              f"limits); the f32 forward against the CPU's bf16 one: "
+              f"{cpu_f32[0]:.3g}, {cpu_f32[1]:.3g}, against the card's: "
+              f"{card_f32[0]:.3g}, {card_f32[1]:.3g}; on {smi}", flush=True)
+
+        for tool, argv in (("ablate_canonical", ["--variant", "ref"]),
+                           ("probe_u28", ["--variant", "cap70"])):
+            state = run(f"{tool} {argv[1]} ({VARIANT_STEPS} steps)",
+                        tools[tool].main,
+                        [*argv, "--iters", str(VARIANT_STEPS), "--workdir",
+                         os.path.join(tmp, tool)])
+            if state.step != VARIANT_STEPS:
+                raise AssertionError(f"{tool}: step {state.step}")
+        shapes = +st_kernel.shape_launches
+        print(f"  phase 7e: {time.perf_counter() - t_phase:.1f} s wall; "
+              f"{total[0]} forward and {total[1]} backward launches",
+              flush=True)
+
+        # both kernels on the IWAE forward's own inputs at k = 25 and 64,
+        # and on the uniform presets' synthesis pastes (not counted)
+        timed_rows = []
+        cfg = air.get_config("iwae")
+        state = tools["iwae_ksweep"].restore_state(cfg, workdirs["iwae"])
+        imgs = air.make_synth_fn(cfg.data, load_digit_bank(
+            "auto", cfg.data.digit_size, split="eval")[0])(
+                1024, seeded_generator("cuda", 4321, 1000))[0]
+        model = state.model.with_config(dataclasses.replace(
+            cfg.model, explore_eps=None))
+        for k in (25, 64):
+            step = air.make_iwae_eval_step(cfg, model, n_particles=k)
+            calls = record_kernel_calls(st_kernel, lambda: step(
+                state, imgs, seeded_generator("cuda", 4321, 131 * k)))
+            timed_rows += kernel_call_rows(st_kernel, calls,
+                                           f"IWAE k={k}", bw, f32_peak)[0]
+            del step, calls
+        for name, digit in SYNTH_ROWS.items():
+            data = air.get_config(name).data
+            bank = load_digit_bank(data.source, data.digit_size)[0].cuda()
+            calls = record_kernel_calls(
+                st_kernel, lambda: air.synthesize_batch(
+                    bank, data, 8192, seeded_generator("cuda", 0, 0)))
+            timed_rows += kernel_call_rows(
+                st_kernel, calls, f"{name} synthesis", bw, f32_peak,
+                {digit: "paste"})[0]
+        missing = [r["case"] for r in timed_rows if not shapes[r["key"]]]
+        if missing:
+            raise AssertionError(f"phase 7e launched no kernel at {missing}")
+        st_kernel.launches = st_kernel.bwd_launches = 0
+    return tuple(total), shapes, timed_rows
+
+
 # Phase 8: every training preset but canonical_fast (phases 5-7), each at
 # its own batch, widths, canvas and dtype mix, K steps a chunk.
 PRESET_K = 4
@@ -2288,6 +2603,12 @@ def main() -> int:
     workflow_launches, workflow_bwd_launches = workflow_phase(
         air, st_kernel, smi, bank)
 
+    print("[7e] the analysis tools: overlap characterization, overlap "
+          "errors, supervised ceiling, IWAE k-sweep, CPU-card parity, "
+          "ablation and probe runners", flush=True)
+    (analysis_launches, analysis_bwd_launches), analysis_shapes, \
+        analysis_rows = analysis_phase(air, st_kernel, smi, bw, f32_peak)
+
     print(f"[8] every other training preset at full width: K = {PRESET_K} "
           f"steps graphed against eager", flush=True)
     (preset_launches, preset_bwd_launches), preset_shapes, (
@@ -2326,19 +2647,25 @@ def main() -> int:
             "shape": f"{head['case']} N={head['n']}",
             "shapes": [{k: r[k] for k in keys} for r in timed],
             "preset_launches_by_shape": by_shape,
+            "analysis_launches_by_shape": [
+                {"shape": f"{h}x{w}->{oh}x{ow}", "n": n, "launches": c}
+                for (k, n, h, w, oh, ow), c in sorted(
+                    analysis_shapes.items()) if k == name],
         }
 
     kernels = [
         kernel_line("st_gather", "st_gather.cu", 54,
                     launches + train_launches + graph_launches
                     + entry_launches + loop_launches + mesh_launches
-                    + workflow_launches + preset_launches,
-                    rows + step_rows + crowded_rows,
+                    + workflow_launches + analysis_launches
+                    + preset_launches,
+                    rows + step_rows + crowded_rows + analysis_rows,
                     lambda c, n: (c, n) == ("gather 50x50->20x20", N_SERVE)),
         kernel_line("st_gather_bwd", "st_gather_bwd.cu", 155,
                     bwd_launches + graph_bwd_launches + entry_bwd_launches
                     + loop_bwd_launches + mesh_bwd_launches
-                    + workflow_bwd_launches + preset_bwd_launches,
+                    + workflow_bwd_launches + analysis_bwd_launches
+                    + preset_bwd_launches,
                     bwd_rows + step_bwd_rows + crowded_bwd_rows,
                     lambda c, n: c.startswith("step paste bwd")),
     ]

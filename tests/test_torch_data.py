@@ -30,26 +30,9 @@ from attend_infer_repeat_tpu import configs as jcfg
 from attend_infer_repeat_tpu.data import digits as jdigits
 from attend_infer_repeat_tpu.data import loader as jloader
 from attend_infer_repeat_tpu.data import synth as jsynth
+from torch_parity import synth_draws
 
 torch.set_num_threads(1)
-
-
-def uniform_draws(key, cfg, batch, n_bank):
-    """The JAX uniform-placement synthesizer's draws, from its key."""
-    t_slots = max(cfg.max_digits, 1)
-    k_count, k_idx, k_scale, k_pos = jax.random.split(key, 4)
-    lo, hi = cfg.scale_range
-    draws = {
-        "nums": jax.random.randint(k_count, (batch,), cfg.min_digits,
-                                   cfg.max_digits + 1),
-        "idx": jax.random.randint(k_idx, (batch, t_slots), 0, n_bank),
-        "scale": jax.random.uniform(k_scale, (batch, t_slots), minval=lo,
-                                    maxval=hi),
-        "candidates": jax.random.uniform(
-            k_pos, (batch, t_slots, cfg.place_attempts, 2), minval=-1.0,
-            maxval=1.0),
-    }
-    return {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
 
 
 # canonical_uniform's and canonical_uniform28's data, and a crowded variant
@@ -74,7 +57,7 @@ def test_uniform_synthesis_matches_jax(name):
     imgs_j, nums_j, meta = jsynth.synthesize_batch(
         key, jnp.asarray(bank.numpy()), cfg, 32, return_meta=True)
     tc = tcfg.DataConfig(**dataclasses.asdict(cfg))
-    draws = uniform_draws(key, cfg, 32, len(bank))
+    draws = synth_draws(key, cfg, 32, len(bank))
     imgs_t, nums_t = synthesize_batch(bank, tc, 32, draws=draws)
     assert np.array_equal(nums_t.numpy(), np.asarray(nums_j))
     np.testing.assert_allclose(imgs_t.numpy(), np.asarray(imgs_j),
@@ -87,6 +70,30 @@ def test_uniform_synthesis_matches_jax(name):
     tx, ty = _uniform_positions(draws["candidates"], sx, sy, tc)
     np.testing.assert_allclose(tx.numpy(), np.asarray(meta["tx"]), atol=1e-6)
     np.testing.assert_allclose(ty.numpy(), np.asarray(meta["ty"]), atol=1e-6)
+
+
+@pytest.mark.parametrize("name", sorted(UNIFORM) + ["grid"])
+def test_synthesis_meta_matches_jax(name):
+    """``return_meta``: each slot's box and presence from the JAX draws
+    equal the JAX synthesizer's meta to 1e-6, for both placements; the
+    canvases and counts are bit-equal with and without it."""
+    cfg = UNIFORM.get(name, jcfg.DataConfig())
+    bank, _ = load_digit_bank("auto", cfg.digit_size)
+    key = jax.random.key(7)
+    _, _, meta_j = jsynth.synthesize_batch(
+        key, jnp.asarray(bank.numpy()), cfg, 32, return_meta=True)
+    tc = tcfg.DataConfig(**dataclasses.asdict(cfg))
+    draws = synth_draws(key, cfg, 32, len(bank))
+    imgs, nums, meta = synthesize_batch(bank, tc, 32, draws=draws,
+                                        return_meta=True)
+    assert sorted(meta) == sorted(meta_j) == ["present", "sx", "sy", "tx",
+                                              "ty"]
+    for k, v in meta.items():
+        assert v.dtype == torch.float32 and v.shape == (32, cfg.max_digits)
+        np.testing.assert_allclose(v.numpy(), np.asarray(meta_j[k]),
+                                   rtol=0, atol=1e-6, err_msg=k)
+    plain_imgs, plain_nums = synthesize_batch(bank, tc, 32, draws=draws)
+    assert torch.equal(imgs, plain_imgs) and torch.equal(nums, plain_nums)
 
 
 def test_uniform_draws_and_generator_path():

@@ -26,6 +26,7 @@ from torch_parity import (
     generate_noise,
     images,
     paired_models,
+    synth_draws,
     uncaptured,
 )
 
@@ -93,26 +94,6 @@ def test_generate_matches_jax_with_default_prior():
     assert sampled.shape == (5, 24, 24)
 
 
-def jax_draws(key, cfg, batch, n_bank):
-    """The JAX synthesizer's draws, regenerated from its key."""
-    t_slots = max(cfg.max_digits, 1)
-    g = jsynth._grid_size(t_slots, cfg)
-    k_count, k_idx, k_scale, k_pos = jax.random.split(key, 4)
-    lo, hi = cfg.scale_range
-    k_cell, k_jit = jax.random.split(k_pos)
-    draws = {
-        "nums": jax.random.randint(k_count, (batch,), cfg.min_digits,
-                                   cfg.max_digits + 1),
-        "idx": jax.random.randint(k_idx, (batch, t_slots), 0, n_bank),
-        "scale": jax.random.uniform(k_scale, (batch, t_slots), minval=lo,
-                                    maxval=hi),
-        "scores": jax.random.uniform(k_cell, (batch, g * g)),
-        "jitter": jax.random.uniform(k_jit, (batch, t_slots, 2),
-                                     minval=-1.0, maxval=1.0),
-    }
-    return {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
-
-
 @pytest.mark.parametrize("cfg", [
     jcfg.DataConfig(),
     jcfg.DataConfig(max_digits=5, scale_range=(0.7, 1.0), digit_size=(12, 12),
@@ -124,7 +105,7 @@ def test_grid_synthesis_matches_jax(cfg):
                                              cfg, 16)
     tcfg_data = tcfg.DataConfig(**dataclasses.asdict(cfg))
     imgs_t, nums_t = synthesize_batch(
-        bank, tcfg_data, 16, draws=jax_draws(key, cfg, 16, len(bank)))
+        bank, tcfg_data, 16, draws=synth_draws(key, cfg, 16, len(bank)))
     assert np.array_equal(nums_t.numpy(), np.asarray(nums_j))
     np.testing.assert_allclose(imgs_t.numpy(), np.asarray(imgs_j),
                                rtol=1e-5, atol=1e-5)

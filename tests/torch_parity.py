@@ -98,6 +98,36 @@ def forward_noise(jc, key, batch, binarize=False):
                  for a in (ew, eh, up))
 
 
+def synth_draws(key, cfg, batch, n_bank):
+    """The JAX synthesizer's draws for either placement, regenerated from
+    its key as ``synthesize_batch`` and its ``_grid_positions`` or
+    ``_uniform_positions`` split it; torch tensors keyed as the port's
+    ``sample_draws`` returns them."""
+    from attend_infer_repeat_tpu.data import synth as jsynth
+
+    t_slots = max(cfg.max_digits, 1)
+    k_count, k_idx, k_scale, k_pos = jax.random.split(key, 4)
+    lo, hi = cfg.scale_range
+    draws = {
+        "nums": jax.random.randint(k_count, (batch,), cfg.min_digits,
+                                   cfg.max_digits + 1),
+        "idx": jax.random.randint(k_idx, (batch, t_slots), 0, n_bank),
+        "scale": jax.random.uniform(k_scale, (batch, t_slots), minval=lo,
+                                    maxval=hi),
+    }
+    if cfg.placement == "uniform":
+        draws["candidates"] = jax.random.uniform(
+            k_pos, (batch, t_slots, cfg.place_attempts, 2), minval=-1.0,
+            maxval=1.0)
+    else:
+        g = jsynth._grid_size(t_slots, cfg)
+        k_cell, k_jit = jax.random.split(k_pos)
+        draws["scores"] = jax.random.uniform(k_cell, (batch, g * g))
+        draws["jitter"] = jax.random.uniform(k_jit, (batch, t_slots, 2),
+                                             minval=-1.0, maxval=1.0)
+    return {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
+
+
 def generate_noise(jc, key, batch, success_prob):
     """The JAX ``generate``'s draws ``(n, eps_what, eps_where)``."""
     from attend_infer_repeat_tpu.ops.distributions import geometric_prior
