@@ -1,0 +1,15 @@
+"""The spatial transformer's share of its roofline in train steps: the
+least time of the steps' ST work (``yardstick.st_bytes.train_step``, at
+the card's HBM rate) over the device time of the kernels whose names
+start with ``st_gather``.  Train cells only."""
+
+from air_bench.yardstick import st_bytes
+
+UNIT = "%"
+
+
+def read(r):
+    if r.kind != "chunks" or r.peaks is None or not r.summary["st_kernel_s"]:
+        return None
+    work = sum(st_bytes.train_step(r.cfg).values()) * r.traced["steps"]
+    return 100.0 * work / r.peaks["hbm_bytes_s"] / r.summary["st_kernel_s"]
