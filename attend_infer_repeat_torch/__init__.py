@@ -25,8 +25,8 @@ built with ``nvcc`` at first use::
 
 or ``python -m attend_infer_repeat_torch.train --config canonical_fast``.
 ``parallel`` splits the steps and serving over the ranks of a
-``torch.distributed`` mesh; ``utils`` has the profiler trace, the step
-timer and the NaN trap.
+``torch.distributed`` mesh; ``utils`` has the profiler trace, the host
+spans and the NaN trap.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise (``resolve_device``).
 """
@@ -68,7 +68,6 @@ _EXPORTS = {
     "debug_mode": "utils",
     "checkify_fn": "utils",
     "trace": "utils",
-    "StepTimer": "utils",
     "enable_compilation_cache": "utils",
 }
 

@@ -30,6 +30,7 @@ from attend_infer_repeat_torch.parallel.sharding import (
     gather_batch,
 )
 from attend_infer_repeat_torch.utils import graphs
+from attend_infer_repeat_torch.utils.profiling import span
 
 
 def _chunk_generators(generator: torch.Generator | None, n: int,
@@ -91,15 +92,20 @@ def make_infer_fn(config: Config, model: AIRModel,
 
     def draw(batch, generator):
         """The forward's noise for ``batch``: one stream, or one per tile."""
-        if tile is None or batch <= tile:
-            return model.sample_noise(batch, generator)
-        gens = _chunk_generators(generator, batch // tile, model.device)
-        return tuple(torch.cat(parts, dim=1) for parts in
-                     zip(*(model.sample_noise(tile, g) for g in gens)))
+        with span("serve.noise"):
+            if tile is None or batch <= tile:
+                return model.sample_noise(batch, generator)
+            gens = _chunk_generators(generator, batch // tile, model.device)
+            return tuple(torch.cat(parts, dim=1) for parts in
+                         zip(*(model.sample_noise(tile, g) for g in gens)))
 
     @torch.inference_mode()
     def infer(imgs: torch.Tensor, generator: torch.Generator | None = None,
               noise: Noise | None = None) -> Dict[str, torch.Tensor]:
+        with span("serve.infer"):
+            return _infer(imgs, generator, noise)
+
+    def _infer(imgs, generator, noise):
         batch = imgs.shape[0]
         tiled = tile is not None and batch > tile
         if tiled and batch % tile:

@@ -67,6 +67,7 @@ from attend_infer_repeat_torch.train.state import (
     prior_success_prob,
 )
 from attend_infer_repeat_torch.utils import graphs
+from attend_infer_repeat_torch.utils.profiling import span
 
 # the entries of a schedule row (``step_schedule``)
 SCHEDULE = ("prior_success_prob", "kl_beta") + tuple(f"lr/{g}"
@@ -480,17 +481,21 @@ class StepGraph:
         """K steps from ``state`` (on ``batch`` and ``noise``, as given
         at capture); advances it and returns the metric rows."""
         ts = self.ts
-        graphs.check_held(self.held, ts.state_tensors(state),
-                          "state's tensors")
-        graphs.fill(self.inputs, (batch, noise))
-        rows = torch.stack([ts.schedule(state, i) for i in range(self.k)])
-        self.table.copy_(to_device(rows, ts.device))
-        self.row.zero_()
-        for i in range(self.k):
-            ts.seed(state, i)
-            self.graph.launch()
-        ts.advance(state, self.k)
-        out = self.out.clone()
+        with span("train.steps"):
+            with span("train.prepare"):
+                graphs.check_held(self.held, ts.state_tensors(state),
+                                  "state's tensors")
+                graphs.fill(self.inputs, (batch, noise))
+                rows = torch.stack([ts.schedule(state, i)
+                                    for i in range(self.k)])
+                self.table.copy_(to_device(rows, ts.device))
+                self.row.zero_()
+            for i in range(self.k):
+                with span("train.seed"):
+                    ts.seed(state, i)
+                self.graph.launch()
+            ts.advance(state, self.k)
+            out = self.out.clone()
         return state, {k: out[:, j] for j, k in enumerate(self.keys)}
 
 

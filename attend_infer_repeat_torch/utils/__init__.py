@@ -1,4 +1,4 @@
-"""Auxiliary subsystems: profiling and step timing, NaN trapping and
+"""Auxiliary subsystems: profiling and host spans, NaN trapping and
 functional error checks, and the kernels' build cache.
 
 The counterparts of the JAX package's ``utils``: ``torch.profiler`` for
@@ -9,7 +9,7 @@ kernels' build directory for XLA's compilation cache.
 
 from attend_infer_repeat_torch.utils.cache import enable_compilation_cache
 from attend_infer_repeat_torch.utils.debug import checkify_fn, debug_mode
-from attend_infer_repeat_torch.utils.profiling import StepTimer, trace
+from attend_infer_repeat_torch.utils.profiling import span, trace
 
 __all__ = ["checkify_fn", "debug_mode", "enable_compilation_cache",
-           "StepTimer", "trace"]
+           "span", "trace"]

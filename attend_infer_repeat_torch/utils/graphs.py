@@ -54,6 +54,8 @@ from typing import Callable, Sequence
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from attend_infer_repeat_torch.utils.profiling import span
+
 #: Eager runs of a function before it is captured.
 WARMUP = 3
 
@@ -139,21 +141,22 @@ class Graph:
         if self.device.type == "cuda":
             self.graph = torch.cuda.CUDAGraph()
             capture = torch.cuda.graph(self.graph)
-        self._warm_up(body, capture, state, prepare)
-        counts = _launch_counts()
-        if self.graph is not None:
-            # as the capture does on entry, so that the memory reserved
-            # after it, less that before, is the graph's own pool
-            gc.collect()
-            torch.cuda.empty_cache()
-        reserved = self._reserved()
-        try:
-            self.out = self._capture(body, capture, generators)
-        finally:
-            after = _launch_counts()
-            captured = (after[0] - counts[0], after[1] - counts[1],
-                        after[2] - counts[2])
-            _add_launches(captured, sign=-1)
+        with span("graph.capture"):
+            self._warm_up(body, capture, state, prepare)
+            counts = _launch_counts()
+            if self.graph is not None:
+                # as the capture does on entry, so that the memory reserved
+                # after it, less that before, is the graph's own pool
+                gc.collect()
+                torch.cuda.empty_cache()
+            reserved = self._reserved()
+            try:
+                self.out = self._capture(body, capture, generators)
+            finally:
+                after = _launch_counts()
+                captured = (after[0] - counts[0], after[1] - counts[1],
+                            after[2] - counts[2])
+                _add_launches(captured, sign=-1)
         self.per_replay = captured
         self.pool_bytes = self._reserved() - reserved
 
@@ -206,8 +209,9 @@ class Graph:
 
     def launch(self):
         """Replay once; returns ``out``."""
-        self._replay()
-        _add_launches(self.per_replay)
+        with span("graph.launch"):
+            self._replay()
+            _add_launches(self.per_replay)
         return self.out
 
 
@@ -328,18 +332,23 @@ class GraphCache(dict):
         """Replay the graph of ``inputs``' signature (captured at its
         first call); returns its static outputs, which the next replay
         rewrites."""
-        key = signature(inputs)
-        entry = self.get(key)
-        if entry is None:
-            tensors = _held(held)
-            static = static_like(inputs, tensors[0].device)
-            graph = Graph(lambda: self.fn(held, *static), tensors[0].device)
-            entry = self[key] = _Entry(static, graph, addresses(tensors))
-        else:
-            check_held(entry.held, _held(held), "parameters")
+        with span("graphs.lookup"):
+            key = signature(inputs)
+            entry = self.get(key)
+            if entry is None:
+                tensors = _held(held)
+                static = static_like(inputs, tensors[0].device)
+                graph = Graph(lambda: self.fn(held, *static),
+                              tensors[0].device)
+                entry = self[key] = _Entry(static, graph, addresses(tensors))
+            else:
+                check_held(entry.held, _held(held), "parameters")
+        with span("graphs.fill"):       # a miss's build filled them too
             fill(entry.static, inputs)
         return entry.graph.launch()
 
     def __call__(self, held, *inputs):
         """``replay``, with a copy of the outputs that no call rewrites."""
-        return copy(self.replay(held, *inputs))
+        out = self.replay(held, *inputs)
+        with span("graphs.copy_out"):
+            return copy(out)

@@ -1,20 +1,46 @@
-"""Profiling: ``torch.profiler`` traces and step timing.
+"""Profiling: ``torch.profiler`` traces and the program's host spans.
 
 ``trace(logdir)`` writes a Chrome/TensorBoard trace of the enclosed block
-(the card's kernels too, where there is one); ``StepTimer`` measures
-steady-state step walls, fenced with ``torch.cuda.synchronize`` on the
-result's device, since PyTorch returns before the card has finished.
+(the card's kernels too, where there is one).
+
+``span(name)`` marks a stretch of the program's host path as a range
+named ``air.<name>`` in the trace of whatever ``torch.profiler`` session
+records at the time; the profiler is its only sink.  The ranges share
+the trace's clock with the card's kernels, so an idle stretch of the
+card can be put down to the span the host was in; nesting on the one
+thread that issues a call ties a span to its request or chunk.  A range
+is kept on the host: it puts no mark on the device's timeline (as a
+user-scope ``record_function`` would, for the kernels it launches).
+With no profiler recording, ``span`` returns one shared no-op context,
+at the cost of one check.
+
+Spans: ``graph.capture`` (a graph's warm-up runs and capture),
+``graph.launch`` (a replay), ``graphs.lookup``, ``graphs.fill`` and
+``graphs.copy_out`` (a ``GraphCache`` call), ``serve.infer`` and
+``serve.noise`` (an infer request and its noise draw), ``train.steps``,
+``train.prepare`` and ``train.seed`` (a call of K graphed train steps,
+its inputs and each step's re-seeding).
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import os
-import time
 from typing import Optional
 
 import torch
+
+#: Prefix of the program's spans in a trace.
+PREFIX = "air."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records the host range ``air.<name>`` while a
+    profiler records, and does nothing otherwise."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(PREFIX + name)
 
 
 @contextlib.contextmanager
@@ -39,51 +65,3 @@ def trace(logdir: str, annotate: Optional[str] = None):
                 yield prof
         else:
             yield prof
-
-
-def _cuda_devices(tree, found=None) -> set:
-    """The CUDA devices of the tensors in ``tree``."""
-    found = set() if found is None else found
-    if isinstance(tree, torch.Tensor):
-        if tree.is_cuda:
-            found.add(tree.device)
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            _cuda_devices(v, found)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            _cuda_devices(v, found)
-    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        for f in dataclasses.fields(tree):
-            _cuda_devices(getattr(tree, f.name), found)
-    return found
-
-
-class StepTimer:
-    """Wall-clock step timer with warm-up discard and device fencing."""
-
-    def __init__(self, n_warmup: int = 3):
-        self.n_warmup = n_warmup
-        self._times = []
-        self._count = 0
-        self._t0 = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self, result=None):
-        """Fence on ``result``'s devices (if given), then record the wall."""
-        for dev in _cuda_devices(result):
-            torch.cuda.synchronize(dev)
-        dt = time.perf_counter() - self._t0
-        self._count += 1
-        if self._count > self.n_warmup:
-            self._times.append(dt)
-        return dt
-
-    @property
-    def mean_s(self) -> float:
-        return sum(self._times) / max(len(self._times), 1)
-
-    def images_per_sec(self, batch_size: int) -> float:
-        return batch_size / self.mean_s if self._times else 0.0

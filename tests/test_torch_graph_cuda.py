@@ -416,3 +416,46 @@ def test_failed_capture_raises_and_leaves_the_generators_usable(cuda):
         draws.append((torch.rand(4, device=cuda),
                       torch.rand(4, device=cuda, generator=gen)))
     assert all(torch.equal(u, v) for u, v in zip(*draws))
+
+
+def test_spans_stay_on_the_host(cuda, bank):
+    """Under a profiler that traces the card, a graphed chunk and a
+    graphed request show the program's spans as host ranges, and no
+    device event carries a span's name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from attend_infer_repeat_torch.serving import make_infer_fn
+    from attend_infer_repeat_torch.train import (
+        create_train_state, make_scan_train_step)
+    from attend_infer_repeat_torch.utils import profiling
+
+    with profile(activities=[ProfilerActivity.CUDA]):    # CUPTI up first
+        torch.ones(1, device=cuda).add_(1)
+    cfg = tiny_config()
+    state = create_train_state(cfg, seed=3)
+    scan = make_scan_train_step(cfg, state.model, bank, K)
+    serving, model, x = serving_setup(cuda)
+    infer = make_infer_fn(serving, model)
+    gen = torch.Generator(cuda).manual_seed(1)
+    state, _ = scan(state)
+    infer(x, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = scan(state)
+        infer(x, gen)
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    device = [e.name() for e in events if e.device_type() == DeviceType.CUDA]
+    host = [e.name() for e in events if e.device_type() != DeviceType.CUDA
+            and e.name().startswith(profiling.PREFIX)]
+    assert device and not [n for n in device
+                           if n.startswith(profiling.PREFIX)]
+    names = {f"air.{n}" for n in (
+        "train.steps", "train.prepare", "train.seed", "graph.launch",
+        "serve.infer", "serve.noise", "graphs.lookup", "graphs.fill",
+        "graphs.copy_out")}
+    assert set(host) == names
+    assert host.count("air.graph.launch") == K + 1
+    assert host.count("air.train.seed") == K

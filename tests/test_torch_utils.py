@@ -1,6 +1,6 @@
-"""PyTorch port: the tests of ``tests/test_utils.py`` (step timer, trace,
-debug mode, functional checks) ported, the kernels' build cache and a
-graph's launch counts."""
+"""PyTorch port: the tests of ``tests/test_utils.py`` (trace, debug
+mode, functional checks) ported, the kernels' build cache, a graph's
+launch counts and the program's host spans."""
 
 import collections
 import json
@@ -8,28 +8,28 @@ import os
 
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile, schedule
 
+from attend_infer_repeat_torch import configs as tcfg
 from attend_infer_repeat_torch.utils import (
-    StepTimer,
     checkify_fn,
     debug_mode,
     enable_compilation_cache,
+    span,
     trace,
 )
-from attend_infer_repeat_torch.utils import debug
+from attend_infer_repeat_torch.utils import debug, graphs, profiling
 
 torch.set_num_threads(1)
 
 
-def test_step_timer_measures():
-    t = StepTimer(n_warmup=1)
-    x = torch.ones((64, 64))
-    for _ in range(4):
-        t.start()
-        t.stop({"y": x * 2.0, "rows": [x]})
-    assert len(t._times) == 3
-    assert t.mean_s > 0
-    assert t.images_per_sec(64) > 0
+class PythonAtCaptureOnly(graphs.Graph):
+    # as on the card: the capture runs the body's Python, a replay none
+    def _capture(self, body, capture, generators):
+        return body()
+
+    def _replay(self):
+        pass
 
 
 def test_trace_writes_profile(tmp_path):
@@ -103,7 +103,7 @@ def test_package_exports_resolve():
     for name in air.__all__:
         assert getattr(air, name) is not None, name
     for name in ("make_mesh", "shard_batch", "make_shardmap_train_step",
-                 "debug_mode", "checkify_fn", "trace", "StepTimer",
+                 "debug_mode", "checkify_fn", "trace",
                  "enable_compilation_cache"):
         assert name in air.__all__
 
@@ -112,15 +112,6 @@ def test_graph_counts_launches_by_shape(monkeypatch):
     """A graph's capture adds no launch, since it executes nothing; each
     replay adds the launches of one captured run, by shape too."""
     from attend_infer_repeat_torch.ops import st_kernel
-    from attend_infer_repeat_torch.utils import graphs
-
-    class PythonAtCaptureOnly(graphs.Graph):
-        # as on the card: the capture runs the body's Python, a replay none
-        def _capture(self, body, capture, generators):
-            return body()
-
-        def _replay(self):
-            pass
 
     key = ("st_gather_bwd", 4, 20, 20, 50, 50)
     monkeypatch.setattr(st_kernel, "launches", 0)
@@ -141,3 +132,130 @@ def test_graph_counts_launches_by_shape(monkeypatch):
         graphs.WARMUP + 2
     assert st_kernel.launches == 0 and +st_kernel.shape_launches == \
         collections.Counter({key: graphs.WARMUP + 2})
+
+
+# --- host spans -------------------------------------------------------------
+
+def spans(prof) -> list:
+    """The trace's ``air.`` host ranges in order of start, each indented
+    by the ranges that hold it."""
+    found = sorted((e.start_ns(), -e.duration_ns(), e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.name().startswith(profiling.PREFIX))
+    rows, ends = [], []
+    for start, minus_length, name in found:
+        while ends and ends[-1] <= start:
+            ends.pop()
+        rows.append("  " * len(ends) + name[len(profiling.PREFIX):])
+        ends.append(start - minus_length)
+    return rows
+
+
+def recorded():
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def tiny_config() -> tcfg.Config:
+    return tcfg.Config(
+        model=tcfg.ModelConfig(
+            img_size=(12, 12), glimpse_size=(4, 4), n_what=3, max_steps=2,
+            rnn_hidden=8, encoder_hidden=(8,), glimpse_encoder_hidden=(8,),
+            decoder_hidden=(8,), transform_hidden=(8,), steps_hidden=(4,),
+            baseline_hidden=(8,)),
+        data=tcfg.DataConfig(canvas_size=(12, 12), digit_size=(4, 4)),
+        train=tcfg.TrainConfig(batch_size=4))
+
+
+def test_span_off_is_one_shared_noop():
+    """With no profiler recording a span is the one no-op context, and a
+    profiler that has not started yet records none of it."""
+    assert span("a") is span("b") is profiling._OFF
+    seen = []
+    with profile(activities=[ProfilerActivity.CPU],
+                 schedule=schedule(wait=1, warmup=1, active=1),
+                 on_trace_ready=lambda p: seen.append(spans(p))) as p:
+        for name in ("waiting", "warming", "recording"):
+            with span(name):
+                torch.ones(2).add_(1)
+            p.step()
+    assert seen == [["recording"]]
+
+
+def test_span_closes_when_its_body_raises():
+    with recorded() as p:
+        with pytest.raises(KeyError):
+            with span("outer"):
+                with span("inner"):
+                    raise KeyError("x")
+        with span("after"):
+            pass
+    assert spans(p) == ["outer", "  inner", "after"]
+
+
+def test_graph_cache_spans(monkeypatch):
+    """A call's lookup (the first holds the capture), fill, replay and
+    copy of the outputs, in order."""
+    monkeypatch.setattr(graphs, "Graph", PythonAtCaptureOnly)
+    cache = graphs.GraphCache(lambda held, x: {"y": x * held})
+    held, x = torch.full((3,), 2.0), torch.arange(3.0)
+    with recorded() as p:
+        first = cache(held, x)
+        second = cache(held, x)
+    assert spans(p) == ["graphs.lookup", "  graph.capture", "graphs.fill",
+                        "graph.launch", "graphs.copy_out"] + [
+        "graphs.lookup", "graphs.fill", "graph.launch", "graphs.copy_out"]
+    assert torch.equal(first["y"], second["y"])
+    assert first["y"] is not second["y"]
+
+
+def test_step_graph_spans(monkeypatch):
+    """A call of K graphed steps: its preparation, then each step's
+    re-seeding and replay, all inside ``train.steps``; the first call
+    captures the step before."""
+    from attend_infer_repeat_torch.train import (
+        create_train_state,
+        make_scan_train_step,
+    )
+
+    monkeypatch.setattr(graphs, "Graph", PythonAtCaptureOnly)
+    monkeypatch.setattr(graphs, "eager", lambda device: False)
+    k, cfg = 3, tiny_config()
+    state = create_train_state(cfg, seed=0, device="cpu")
+    scan = make_scan_train_step(cfg, state.model, torch.rand((5, 4, 4)), k)
+    calls = []
+    with recorded() as p:
+        for _ in range(2):
+            state, rows = scan(state)
+            calls.append(rows["loss"].shape)
+    steps = ["train.steps", "  train.prepare"] + [
+        "  train.seed", "  graph.launch"] * k
+    assert spans(p) == ["graph.capture"] + steps + steps
+    assert calls == [(k,), (k,)] and state.step == 2 * k
+
+
+@pytest.mark.parametrize("graphed", [True, False])
+def test_infer_spans(monkeypatch, graphed):
+    """A request: the noise draw, then the graph cache's spans, inside
+    ``serve.infer``; an eager request shows ``serve.infer`` alone."""
+    from attend_infer_repeat_torch.models.air import AIRModel
+    from attend_infer_repeat_torch.serving import make_infer_fn
+
+    if graphed:
+        monkeypatch.setattr(graphs, "Graph", PythonAtCaptureOnly)
+        monkeypatch.setattr(graphs, "eager", lambda device: False)
+    cfg = tiny_config()
+    infer = make_infer_fn(cfg, AIRModel(cfg.model, use_baseline=False,
+                                        device="cpu"))
+    imgs, gen = torch.rand((4, 12, 12)), torch.Generator().manual_seed(0)
+    with recorded() as p:
+        for _ in range(2):
+            out = infer(imgs, gen)
+    request = ["serve.infer"]
+    if graphed:
+        request += ["  serve.noise", "  graphs.lookup", "  graphs.fill",
+                    "  graph.launch", "  graphs.copy_out"]
+    first = list(request)
+    if graphed:
+        first.insert(3, "    graph.capture")
+    assert spans(p) == first + request
+    assert out["canvas"].shape == (4, 12, 12)
