@@ -22,8 +22,9 @@ package's ``make_scan_cell`` does with ``nn.remat``:
   - ``remat_policy="save_st"`` checkpoints the two stretches between the
     spatial-transformer calls (encoder → LSTM → where, then what →
     presence → decoder) and runs the gather and the paste outside them,
-    so autograd keeps their outputs and the backward launches no forward
-    kernel (JAX: ``save_only_these_names("st_gather", "st_paste")``).
+    so autograd keeps what their backward needs and the backward launches
+    no forward kernel (JAX: ``save_only_these_names("st_gather",
+    "st_paste")``).
     A selective-checkpoint policy would not see ``STGather``, a Python
     ``autograd.Function``, so the split is written out.
 The noise comes in as tensors and the stretches draw none, so a
@@ -55,7 +56,7 @@ from attend_infer_repeat_torch.models.modules import (
 )
 from attend_infer_repeat_torch.ops.spatial_transformer import (
     st_gather,
-    st_paste,
+    st_paste_accumulate,
 )
 
 
@@ -127,12 +128,11 @@ class AIRCell(nn.Module):
         what_loc, what_scale, z_what, p_eff, pres_prev, z_pres, \
             glimpse_out = run(self._infer, glimpse, h, z_where, z_pres,
                               decoder, eps_what, u_pres)
-        paste = st_paste(glimpse_out, st_where(cfg, z_where), cfg.img_size)
-        # accumulate in f32, store at the configured carry dtype
-        acc = canvas.to(torch.float32) + z_pres[..., None] * paste
+        # paste, accumulate in f32, store at the carry's dtype: one kernel
+        canvas = st_paste_accumulate(canvas, glimpse_out,
+                                     st_where(cfg, z_where), z_pres)
         if cfg.canvas_rebuild:
-            acc = acc.detach()
-        canvas = acc.to(torch_dtype(cfg.canvas_carry_dtype))
+            canvas = canvas.detach()
 
         out = AIRStepOutput(
             where_loc=where_loc, where_scale=where_scale, z_where=z_where,

@@ -18,7 +18,9 @@ Conventions:
 ``st_gather`` dispatches by device, forward and backward: a CUDA tensor
 goes to the hand-written kernels (``st_kernel.st_gather_cuda`` and
 ``st_gather_bwd_cuda``), a CPU tensor to their plain versions, the
-separable einsum and its explicit VJP.
+separable einsum and its explicit VJP.  ``st_paste_accumulate`` (the
+cell's canvas update) dispatches the same way, its forward fused with
+the update on the card.
 """
 
 from __future__ import annotations
@@ -125,6 +127,31 @@ def st_paste(glimpse: torch.Tensor, z_where: torch.Tensor,
     ``glimpse (..., h, w)``, ``z_where (..., 4)`` → ``(..., H, W)``.
     """
     return st_gather(glimpse, invert_where(z_where), canvas_shape)
+
+
+def st_paste_accumulate(canvas: torch.Tensor, glimpse: torch.Tensor,
+                        z_where: torch.Tensor,
+                        z_pres: torch.Tensor) -> torch.Tensor:
+    """Paste a glimpse into a carried canvas, masked by presence.
+
+    ``canvas (..., H, W)`` (float32 or bfloat16), ``glimpse (..., h, w)``,
+    ``z_where (..., 4)``, ``z_pres (..., 1)`` → the new canvas, at the
+    canvas's dtype: ``f32(canvas) + z_pres · st_paste(glimpse, z_where)``
+    accumulated in f32 and cast back.  One fused kernel on the card
+    (``st_kernel.STGatherAccumulate``), the same bits as those ops;
+    differentiable in the canvas, the glimpse and ``z_where``.
+    """
+    from attend_infer_repeat_torch.ops import st_kernel
+
+    shape = canvas.shape
+    flat = canvas.reshape((-1,) + tuple(shape[-2:]))
+    img = glimpse.reshape((-1,) + tuple(glimpse.shape[-2:])).to(torch.float32)
+    zw = invert_where(z_where).reshape(-1, 4).to(torch.float32)
+    pres = z_pres.reshape(-1).to(torch.float32)
+    out = st_kernel.STGatherAccumulate.apply(
+        flat.contiguous(), img.contiguous(), zw.contiguous(),
+        pres.contiguous())
+    return out.reshape(shape)
 
 
 def st_gather_reference(image: torch.Tensor, z_where: torch.Tensor,

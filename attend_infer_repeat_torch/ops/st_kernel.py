@@ -14,8 +14,18 @@ launch their kernel or raise; ``st_gather_plain`` and
 einsums with materialized hat weights), used for CPU tensors and as the
 kernels' yardsticks on the card.  ``STGather`` is the autograd glue: its
 forward and backward take the kernel for CUDA tensors and the plain
-version for CPU tensors.  ``launches`` and ``bwd_launches`` count kernel
-launches, and nothing else; ``shape_launches`` counts them by shape.
+version for CPU tensors.
+
+``st_gather_accumulate_cuda`` is a paste fused with the canvas update
+that follows it in the model's cell, ``carry(f32(canvas) + z_pres ·
+paste)`` in one pass (``st_gather_accumulate_kernel`` in
+``csrc/st_gather.cu``), bit-equal to the unfused ops;
+``st_gather_accumulate_plain`` is those ops, and ``STGatherAccumulate``
+its autograd glue, whose backward is the gather's backward kernel.
+
+``launches`` and ``bwd_launches`` count kernel launches, and nothing
+else (a fused paste is a forward launch); ``shape_launches`` counts them
+by shape.
 """
 
 from __future__ import annotations
@@ -45,12 +55,14 @@ BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: Number of forward kernel launches since the count was last set to 0.
+#: Number of forward kernel launches (gathers and fused pastes) since the
+#: count was last set to 0.
 launches = 0
 #: Number of backward kernel launches since the count was last set to 0.
 bwd_launches = 0
-#: Launches of either kernel by ``(kernel, N, H, W, h, w)``, ``kernel``
-#: "st_gather" or "st_gather_bwd", since the counter was last cleared.
+#: Launches of each kernel by ``(kernel, N, H, W, h, w)``, ``kernel``
+#: "st_gather", "st_gather_accumulate" or "st_gather_bwd", since the
+#: counter was last cleared.
 shape_launches: collections.Counter = collections.Counter()
 _lib = None
 
@@ -102,6 +114,11 @@ def _load():
             ptr, ptr, ptr, ptr, ptr,                # img zw g gimg gzw
             ctypes.c_longlong, i32, i32, i32, i32, i32, ptr]
         lib.st_gather_bwd.restype = i32
+        lib.st_gather_accumulate.argtypes = [
+            ptr, ptr, ptr, ptr, ptr,                # canvas glimpse zw z out
+            ctypes.c_longlong, i32, i32, i32, i32,  # n in_h in_w out_h out_w
+            i32, ptr]                               # carry_bf16 stream
+        lib.st_gather_accumulate.restype = i32
         _lib = lib
     return _lib
 
@@ -256,6 +273,72 @@ def st_gather_bwd_plain(img: torch.Tensor, zw: torch.Tensor, g: torch.Tensor,
     return g_img, g_zw
 
 
+def st_gather_accumulate_cuda(canvas: torch.Tensor, glimpse: torch.Tensor,
+                              zw: torch.Tensor,
+                              z_pres: torch.Tensor) -> torch.Tensor:
+    """Launch the fused paste: a new canvas
+    ``carry(f32(canvas) + z_pres · st_gather(glimpse, zw, (H, W)))``.
+
+    ``canvas (N, H, W)`` float32 or bfloat16 (the carry, also the
+    result's dtype), ``glimpse (N, h, w)``, ``zw (N, 4)`` (the inverted
+    window) and ``z_pres (N,)`` float32: contiguous CUDA tensors on one
+    device.  Bit-equal to ``st_gather_accumulate_plain`` with the paste
+    from ``st_gather_cuda``.  Not differentiable by itself:
+    ``STGatherAccumulate`` wraps it.
+    """
+    global launches
+    _check_cuda("st_gather_accumulate_cuda", img=glimpse, zw=zw,
+                z_pres=z_pres)
+    n, in_h, in_w = glimpse.shape
+    if not (canvas.is_cuda and canvas.device == glimpse.device):
+        raise ValueError("st_gather_accumulate_cuda takes CUDA tensors on "
+                         "one device")
+    if canvas.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"st_gather_accumulate_cuda takes a float32 or "
+                        f"bfloat16 canvas, got {canvas.dtype}")
+    if canvas.dim() != 3 or canvas.shape[0] != n or tuple(z_pres.shape) != (
+            n,):
+        raise ValueError(f"want canvas (N, H, W) and z_pres (N,) for N = {n},"
+                         f" got {tuple(canvas.shape)} and "
+                         f"{tuple(z_pres.shape)}")
+    if not canvas.is_contiguous():
+        raise ValueError("st_gather_accumulate_cuda takes contiguous "
+                         "tensors")
+    out_h, out_w = canvas.shape[1:]
+    out = torch.empty_like(canvas)
+    if n == 0 or out_h * out_w == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(canvas.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.st_gather_accumulate(
+            canvas.data_ptr(), glimpse.data_ptr(), zw.data_ptr(),
+            z_pres.data_ptr(), out.data_ptr(), n, in_h, in_w, out_h, out_w,
+            int(canvas.dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError(f"st_gather_accumulate kernel launch failed: CUDA "
+                           f"error {err}")
+    launches += 1
+    shape_launches["st_gather_accumulate", n, in_h, in_w, out_h, out_w] += 1
+    return out
+
+
+def st_gather_accumulate_plain(canvas: torch.Tensor, glimpse: torch.Tensor,
+                               zw: torch.Tensor, z_pres: torch.Tensor,
+                               paste=None) -> torch.Tensor:
+    """The fused paste as the unfused ops: ``paste(glimpse, zw, (H, W))``,
+    the presence mask, the f32 add, the cast back to the canvas's dtype.
+
+    ``paste`` is ``st_gather_plain`` (looked up at the call) by default;
+    ``STGather.apply`` makes these the ops that the fused kernel replaces,
+    differentiable, with the paste kernel on the card.
+    """
+    paste = st_gather_plain if paste is None else paste
+    acc = canvas.to(torch.float32) + z_pres[:, None, None] * paste(
+        glimpse, zw, tuple(canvas.shape[-2:]))
+    return acc.to(canvas.dtype)
+
+
 class STGather(torch.autograd.Function):
     """``st_gather`` with its backward: ``(img (N,H,W), zw (N,4)) → (N,h,w)``.
 
@@ -282,3 +365,42 @@ class STGather(torch.autograd.Function):
         g_img, g_zw = bwd(img, zw, g.contiguous(), ctx.out_shape,
                           need_img=need_img)
         return g_img, (g_zw if need_zw else None), None
+
+
+class STGatherAccumulate(torch.autograd.Function):
+    """The fused paste with its backward:
+    ``(canvas (N,H,W), glimpse (N,h,w), zw (N,4), z_pres (N,)) → (N,H,W)``.
+
+    CUDA tensors go to ``st_gather_accumulate_cuda``, CPU tensors to
+    ``st_gather_accumulate_plain``.  The backward is that of the unfused
+    ops: the canvas's cotangent passes through (bf16 → f32 → bf16 is
+    exact), and the paste's, ``z_pres · f32(g)``, goes to the gather's
+    backward (kernel or plain), which gives the glimpse's and the window's
+    gradients bit for bit as the unfused ops do.  ``z_pres`` is the
+    presence sample, which takes no gradient.  Saves ``(glimpse, zw,
+    z_pres)``, not the canvas.
+    """
+
+    @staticmethod
+    def forward(ctx, canvas, glimpse, zw, z_pres):
+        if ctx.needs_input_grad[3]:
+            raise ValueError("STGatherAccumulate does not differentiate "
+                             "z_pres")
+        ctx.save_for_backward(glimpse, zw, z_pres)
+        if canvas.is_cuda:
+            return st_gather_accumulate_cuda(canvas, glimpse, zw, z_pres)
+        return st_gather_accumulate_plain(canvas, glimpse, zw, z_pres)
+
+    @staticmethod
+    def backward(ctx, g):
+        glimpse, zw, z_pres = ctx.saved_tensors
+        need_canvas, need_glimpse, need_zw = ctx.needs_input_grad[:3]
+        g_glimpse = g_zw = None
+        if need_glimpse or need_zw:
+            bwd = st_gather_bwd_cuda if g.is_cuda else st_gather_bwd_plain
+            # bf16 * f32 is computed in f32: f32(g) * z_pres, one pass
+            g_paste = (g * z_pres[:, None, None]).contiguous()
+            g_glimpse, g_zw = bwd(glimpse, zw, g_paste, g.shape[-2:],
+                                  need_img=need_glimpse)
+        return (g if need_canvas else None, g_glimpse,
+                g_zw if need_zw else None, None)

@@ -21,12 +21,20 @@ Phases, in order (any failure raises and exits non-zero):
    edge cases and ``WINDOW_CASES``; two runs bit-identical; the library
    call is ``grid_sample``'s backward; the bound counts the cotangent only
    where it has a tap (``gather_bwd_work``);
+3c. the fused paste (``st_gather_accumulate_cuda``: the paste with the
+   cell's canvas update, presence mask, f32 add and cast to the carry)
+   against the unfused ops, bit for bit in the canvas and in the
+   canvas's, glimpse's and window's gradients, and against its plain
+   version at the gather's limits, with an f32 and a bf16
+   carry, at the serve shape (N = 8192) and the ``canonical_fast`` and
+   ``crowded`` step shapes, and on ``WINDOW_CASES``; each timed beside
+   its plain version, the unfused ops and its bound (``accumulate_work``);
 4. the serving slice: canvas synthesis, serving requests through
    ``make_infer_fn`` for the ``serving`` preset and the ``canonical_fast``
    model, ``make_generate_fn``, all through their CUDA graphs; launch
    counts read around that run (a graph's first call adds its warm-up
-   runs); one request rerun eagerly through the plain spatial
-   transformer and compared;
+   runs), the fused paste among them at batch 8192; one request rerun
+   eagerly through the plain spatial transformer and compared;
 5. the train step: ``canonical_fast`` at batch 1024 through
    ``create_train_state`` and ``make_train_step``, eagerly
    (``utils.debug_mode``; warm-up, then timed steps) and through the
@@ -35,15 +43,17 @@ Phases, in order (any failure raises and exits non-zero):
    (per step: 1 synthesis paste, 6 forward, 6 backward launches; the
    preset's remat ``save_st`` recomputes no kernel);
 5b. one more eager step with every kernel call's inputs recorded; each
-   kernel against plain and timed on the windows, images and cotangents
-   that the step really gives it (after the counts were read);
+   kernel against plain (the fused paste against the unfused ops) and
+   timed on the windows, images and cotangents that the step really
+   gives it (after the counts were read);
 5c. the K-step chunk as a replayed CUDA graph (``make_scan_train_step``):
    for K = 4 and the preset's 100, the graphed chunk and the same K steps
    run eagerly (``utils.debug_mode``) from one state must agree bit for
    bit in parameters, optimizer state and every metric row (else the
    largest gap is printed and held to phase 6's ``canonical_fast``
    limits); launch counts read around that run (a replay counts the
-   launches of one captured step); then step wall and train img/s,
+   launches of one captured step; 3 fused pastes a step); then step
+   wall and train img/s,
    eager and graphed, with the preset's remat ``save_st`` and with remat
    off;
 5d. the JAX package's other jitted entry points as CUDA graphs against
@@ -136,8 +146,10 @@ Phases, in order (any failure raises and exits non-zero):
    16×16→100×100 at N = 5×1024, their backwards), against plain and
    timed, as phase 5b; each of those shapes must have been launched in
    phase 8;
-9. a ``kernels`` JSON line (with the launches by shape of phases 7e and
-   8), then the
+9. a ``kernels`` JSON line (``st_gather``, ``st_gather_accumulate`` and
+   ``st_gather_bwd``: each one's launches in the phases that run the
+   program, 4 to 8 without 5b, 6, 7c and 8b, counted by shape, and its
+   launches by shape in phases 7e and 8), then the
    last line
    ``{"ok": true, "device": {...}}``.
 
@@ -157,6 +169,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -398,6 +411,99 @@ def time_gather(st_kernel, row, img, zw, out_shape, bw, f32_peak):
             + f", input touched {100 * row['touched']:.1f}%")
 
 
+def bits_differ(a, b) -> int:
+    """Entries whose bits differ (two NaNs count as equal)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if a.dtype != b.dtype:
+        return a.numel()
+    same = a.view(ints[a.dtype]) == b.view(ints[b.dtype])
+    return int((~same & ~(torch.isnan(a) & torch.isnan(b))).sum())
+
+
+def check_accumulate(st_kernel, row, canvas, glimpse, zw, z_pres):
+    """The fused paste with an f32 and a bf16 carry against the unfused
+    ops, bit for bit: the canvas, and the canvas's, glimpse's and window's
+    gradients.  Then against its plain version at the gather's limits:
+    the canvas to ``F32_TOL`` (a bf16 carry through the same values
+    carried in f32, whose result it must be, rounded), the glimpse's and
+    window's gradients to ``BWD_TOL``.  Errors into ``row``, raises on a
+    miss; returns the message."""
+    unfused = functools.partial(st_kernel.st_gather_accumulate_plain,
+                                paste=st_kernel.STGather.apply)
+    out_shape = tuple(canvas.shape[1:])
+    name = f"{row['case']} N={row['n']}"
+    g = torch.randn(canvas.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(7))
+    for carry, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        c, g_out = canvas.to(carry), g.to(carry)
+        outs, grads = [], []
+        for fn in (st_kernel.STGatherAccumulate.apply, unfused):
+            leaves = [t.clone().requires_grad_() for t in (c, glimpse, zw)]
+            out = fn(*leaves, z_pres)
+            out.backward(g_out)
+            outs.append(out.detach())
+            grads.append([t.grad for t in leaves])
+        wide = st_kernel.st_gather_accumulate_cuda(c.float(), glimpse, zw,
+                                                   z_pres)
+        plain = st_kernel.st_gather_accumulate_plain(c.float(), glimpse, zw,
+                                                     z_pres)
+        g_plain = st_kernel.st_gather_bwd_plain(
+            glimpse, zw, z_pres[:, None, None] * g_out.float(), out_shape)
+        torch.cuda.synchronize()
+        differ = [bits_differ(*outs)] + [bits_differ(a, b)
+                                         for a, b in zip(*grads)]
+        if any(differ):
+            raise AssertionError(
+                f"{name} {carry}: the fused paste differs from the unfused "
+                f"ops in {differ} entries (canvas, then the canvas's, "
+                f"glimpse's and window's gradients)")
+        if bits_differ(outs[0], wide.to(carry)):
+            raise AssertionError(f"{name} {carry}: the fused paste is not "
+                                 f"its f32 carry's result, rounded")
+        err = (wide - plain).abs().max().item()
+        e_img, e_zw, ok = bwd_errors(grads[0][1:], g_plain)
+        if not (err <= F32_TOL and ok):
+            raise AssertionError(f"{name} {carry}: the fused paste vs plain "
+                                 f"err canvas {err} g_img {e_img} g_zw "
+                                 f"{e_zw} over the limit")
+        row["max_abs_err" + tag] = err
+        row["err_g_img" + tag], row["err_g_zw" + tag] = e_img, e_zw
+    return (f"  {name}: bit-equal to the unfused ops (canvas and its 3 "
+            f"gradients), f32 and bf16 carry; against plain, f32 carry: err "
+            f"{row['max_abs_err']:.3g} g_img {row['err_g_img']:.3g} g_zw "
+            f"{row['err_g_zw']:.3g}, bf16 carry: err "
+            f"{row['max_abs_err_bf16']:.3g} g_img {row['err_g_img_bf16']:.3g}"
+            f" g_zw {row['err_g_zw_bf16']:.3g}")
+
+
+def accumulate_work(zw, canvas, in_shape):
+    """Bytes and FLOP of the fused paste: the canvas read and written
+    once at the carry's width, the glimpse, the window and the presence
+    read once; the paste's multiply-adds and two operations a pixel."""
+    n, out_h, out_w = canvas.shape
+    _, flops, _ = gather_work(zw, in_shape, (out_h, out_w))
+    nbytes = n * (2 * out_h * out_w * canvas.element_size()
+                  + 4 * (in_shape[0] * in_shape[1] + 4 + 1))
+    return nbytes, flops + 2 * canvas.numel()
+
+
+def time_accumulate(st_kernel, row, canvas, glimpse, zw, z_pres, bw,
+                    f32_peak):
+    """Time the fused paste on these inputs into ``row``, beside its plain
+    version and the unfused ops; its text."""
+    nbytes, flops = accumulate_work(zw, canvas, tuple(glimpse.shape[1:]))
+    with torch.no_grad():
+        row.update(timing(
+            lambda: st_kernel.st_gather_accumulate_cuda(canvas, glimpse, zw,
+                                                        z_pres),
+            lambda: st_kernel.st_gather_accumulate_plain(canvas, glimpse, zw,
+                                                         z_pres),
+            lambda: st_kernel.st_gather_accumulate_plain(
+                canvas, glimpse, zw, z_pres, paste=st_kernel.STGather.apply),
+            nbytes, flops, bw, f32_peak))
+    return timing_text(row, nbytes, "unfused")
+
+
 def kernel_phase(st_kernel, invert_where, bw, f32_peak):
     """Kernel against plain at the serving path's shapes; returns rows."""
     gen = torch.Generator("cuda").manual_seed(0)
@@ -463,6 +569,54 @@ def kernel_phase(st_kernel, invert_where, bw, f32_peak):
     print("  out-of-bounds gather and near-zero-scale paste: exactly 0",
           flush=True)
     nonfinite_phase(st_kernel, invert_where, backward=False)
+    return rows
+
+
+ACC_KEY = "st_gather_accumulate"
+
+
+def accumulate_phase(st_kernel, invert_where, bw, f32_peak):
+    """The fused paste against the unfused ops (bit for bit, forward and
+    backward, both carries) at the cells' shapes, timed beside its plain
+    version, the unfused ops and its bound; then on the windows of
+    ``WINDOW_CASES``.  Returns the rows."""
+    gen = torch.Generator("cuda").manual_seed(5)
+    cases = [  # name, N, canvas, carry, timed?
+        ("fused paste 20x20->50x50 (serve)", N_SERVE, (50, 50),
+         torch.bfloat16, True),
+        ("fused paste 20x20->50x50 (canonical_fast step)", N_TRAIN, (50, 50),
+         torch.bfloat16, True),
+        ("fused paste 20x20->100x100 (crowded step)", N_TRAIN, (100, 100),
+         torch.float32, True),
+        ("fused paste 20x20->50x50", 17, (50, 50), torch.bfloat16, False),
+    ]
+    rows = []
+    for name, n, canvas_shape, carry, timed_case in cases:
+        canvas = torch.rand((n,) + canvas_shape, generator=gen,
+                            device="cuda").to(carry)
+        glimpse = torch.rand((n, 20, 20), generator=gen, device="cuda")
+        zw = invert_where(random_where(n, gen)).contiguous()
+        z_pres = (torch.rand(n, generator=gen, device="cuda") < 0.7).float()
+        row = {"case": f"{name}, {str(carry)[6:]} carry", "n": n,
+               "key": (ACC_KEY, n, 20, 20, *canvas_shape)}
+        msg = check_accumulate(st_kernel, row, canvas, glimpse, zw, z_pres)
+        if timed_case:
+            msg += "; " + time_accumulate(st_kernel, row, canvas, glimpse,
+                                          zw, z_pres, bw, f32_peak)
+        print(msg, flush=True)
+        rows.append(row)
+    for kind in WINDOW_CASES:
+        n = 257
+        zw = branch_where(kind, n, (20, 20), (50, 50), True, gen,
+                          invert_where)
+        row = {"case": f"fused paste 20x20->50x50, {kind}", "n": n}
+        print(check_accumulate(
+            st_kernel, row, torch.rand((n, 50, 50), generator=gen,
+                                       device="cuda"),
+            torch.rand((n, 20, 20), generator=gen, device="cuda"), zw,
+            (torch.rand(n, generator=gen, device="cuda") < 0.7).float()),
+            flush=True)
+        rows.append(row)
     return rows
 
 
@@ -592,8 +746,7 @@ def check_infer(out, batch, cfg):
 
 
 def slice_phase(air, st_kernel, smi):
-    """The serving path, end to end, through its CUDA graphs; returns the
-    kernel launches it made."""
+    """The serving path, end to end, through its CUDA graphs."""
     from attend_infer_repeat_torch.data import load_digit_bank, make_synth_fn
     from attend_infer_repeat_torch.serving import (
         make_generate_fn, make_infer_fn)
@@ -615,6 +768,7 @@ def slice_phase(air, st_kernel, smi):
     first = 1 + graphs.WARMUP
 
     st_kernel.launches = st_kernel.bwd_launches = 0
+    shapes0 = collections.Counter(st_kernel.shape_launches)
     expected = 0
 
     def expect(delta, what):
@@ -672,6 +826,13 @@ def slice_phase(air, st_kernel, smi):
     print(f"  main path: {launches} kernel launches ({per_forward} per "
           f"forward of one tile; a graph's first call adds its "
           f"{graphs.WARMUP} warm-up runs)", flush=True)
+    fused = (st_kernel.shape_launches - shapes0)[
+        (ACC_KEY, N_SERVE, 20, 20, 50, 50)]
+    if not fused:
+        raise AssertionError("the serving path's graphs launched no fused "
+                             "paste at its batch")
+    print(f"  fused paste 20x20->50x50 at N={N_SERVE}: {fused} of them "
+          f"(graphed infer and generate's scenes aside)", flush=True)
     print(f"  infer img/s at batch {N_SERVE} (serving, requests 1-3 median): "
           f"{statistics.median(rates[1:]):.1f} on {smi}", flush=True)
     print(f"  infer img/s at batch {N_SERVE} (canonical_fast, request 1): "
@@ -683,14 +844,16 @@ def slice_phase(air, st_kernel, smi):
     # eagerly (a replay would not see the swap and run the kernel again)
     noise = model.sample_noise(N_SERVE, gen)
     out_k, dt_k = timed(infer, imgs, noise=noise)
-    kernel_fn = st_kernel.st_gather_cuda
+    kernel_fns = st_kernel.st_gather_cuda, st_kernel.st_gather_accumulate_cuda
     st_kernel.st_gather_cuda = st_kernel.st_gather_plain
+    st_kernel.st_gather_accumulate_cuda = st_kernel.st_gather_accumulate_plain
     try:
         with debug_mode(nans=False):
             infer(imgs, noise=noise)
             out_p, dt_p = timed(infer, imgs, noise=noise)
     finally:
-        st_kernel.st_gather_cuda = kernel_fn
+        st_kernel.st_gather_cuda, st_kernel.st_gather_accumulate_cuda = \
+            kernel_fns
     canvas_err = (out_k["canvas"] - out_p["canvas"]).abs().max().item()
     elbo_rel = ((out_k["elbo"] - out_p["elbo"]).abs()
                 / out_p["elbo"].abs().clamp(min=1.0)).max().item()
@@ -703,7 +866,6 @@ def slice_phase(air, st_kernel, smi):
     if not (canvas_err <= 1e-4 and elbo_rel <= 1e-5 and pres_equal):
         raise AssertionError("the slice through the kernel disagrees with "
                              "the plain spatial transformer")
-    return launches
 
 
 def gather_bwd_work(zw, in_shape, out_shape, need_img):
@@ -891,9 +1053,8 @@ def check_metrics(metrics, what):
 def train_phase(air, st_kernel, smi, bank):
     """canonical_fast train steps at batch 1024, eagerly (``debug_mode``)
     and through the step's CUDA graph from the same state, held bit-equal
-    and timed; then one eager ``make_eval_step``.  Returns the forward
-    and backward kernel launches of that run, the eager state and its
-    step."""
+    and timed; then one eager ``make_eval_step``.  Returns the eager
+    state and its step."""
     from attend_infer_repeat_torch.data import make_synth_fn
     from attend_infer_repeat_torch.utils import debug_mode, graphs
 
@@ -991,7 +1152,7 @@ def train_phase(air, st_kernel, smi, bank):
     print(f"  eval step (eager): count accuracy "
           f"{metrics['count_accuracy_mode'].item():.4f} (mode, random "
           f"weights), parameters unchanged", flush=True)
-    return counts, state, step
+    return state, step
 
 
 def rows_of(rows):
@@ -1002,11 +1163,14 @@ def rows_of(rows):
 def record_kernel_calls(st_kernel, run):
     """``run()`` eagerly (``utils.debug_mode``: a replay would call no
     wrapper) with every kernel call's inputs recorded; returns the calls
-    ``(kind, img, zw, g, out_shape, need_img)`` in order."""
+    ``(kind, img, zw, g, out_shape, need_img)`` in order.  A fused paste
+    is kind "acc", its glimpse as ``img`` and ``(canvas, z_pres)`` as
+    ``g``."""
     from attend_infer_repeat_torch.utils import debug_mode
 
     calls = []
-    kernels = st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda
+    kernels = (st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda,
+               st_kernel.st_gather_accumulate_cuda)
 
     def record_fwd(img, zw, out_shape, *args):
         calls.append(("fwd", img.clone(), zw.clone(), None, tuple(out_shape),
@@ -1019,13 +1183,20 @@ def record_kernel_calls(st_kernel, run):
                       tuple(out_shape), need_img))
         return kernels[1](img, zw, g, out_shape, compute_dtype, need_img)
 
-    st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda = (record_fwd,
-                                                              record_bwd)
+    def record_acc(canvas, glimpse, zw, z_pres):
+        calls.append(("acc", glimpse.clone(), zw.clone(),
+                      (canvas.clone(), z_pres.clone()),
+                      tuple(canvas.shape[1:]), None))
+        return kernels[2](canvas, glimpse, zw, z_pres)
+
+    (st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda,
+     st_kernel.st_gather_accumulate_cuda) = record_fwd, record_bwd, record_acc
     try:
         with debug_mode(nans=False):
             run()
     finally:
-        st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda = kernels
+        (st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda,
+         st_kernel.st_gather_accumulate_cuda) = kernels
     torch.cuda.synchronize()
     return calls
 
@@ -1035,21 +1206,30 @@ STEP_KINDS = {(16, 16): "synth paste", (20, 20): "paste"}
 
 def kernel_call_rows(st_kernel, calls, label, bw, f32_peak, kinds=STEP_KINDS):
     """Each kernel against plain and timed on exactly the inputs of
-    ``calls`` (``record_kernel_calls``); returns the forward and backward
-    rows in call order, each named after ``label`` and its input shape's
-    entry in ``kinds`` (else "gather")."""
-    rows = {"fwd": [], "bwd": []}
+    ``calls`` (``record_kernel_calls``); returns the forward rows (fused
+    pastes among them) and the backward rows in call order, each named
+    after ``label`` and its input shape's entry in ``kinds`` (else
+    "gather")."""
+    rows = {"fwd": [], "bwd": [], "acc": []}
+    kernel = {"fwd": "st_gather", "bwd": "st_gather_bwd", "acc": ACC_KEY}
+    forward = []
     for kind, img, zw, g, out_shape, need_img in calls:
         n, h, w = img.shape
         what = kinds.get((h, w), "gather")
-        name = (f"{label} {what}{' bwd' if kind == 'bwd' else ''} "
+        what = {"bwd": f"{what} bwd", "acc": f"fused {what}"}.get(kind, what)
+        name = (f"{label} {what} "
                 f"{h}x{w}->{out_shape[0]}x{out_shape[1]}"
                 f"{'' if need_img is not False else ', g_zw only'} "
                 f"#{len(rows[kind]) + 1}")
-        row = {"case": name, "n": n,
-               "key": ("st_gather" if kind == "fwd" else "st_gather_bwd",
-                       n, h, w, *out_shape)}
-        if kind == "fwd":
+        row = {"case": name, "n": n, "key": (kernel[kind], n, h, w,
+                                             *out_shape)}
+        if kind == "acc":
+            canvas, z_pres = g
+            row["case"] += f", {str(canvas.dtype)[6:]} carry"
+            msg = check_accumulate(st_kernel, row, canvas, img, zw, z_pres)
+            msg += "; " + time_accumulate(st_kernel, row, canvas, img, zw,
+                                          z_pres, bw, f32_peak)
+        elif kind == "fwd":
             msg = check_gather(st_kernel, row, img, zw, out_shape)
             msg += "; " + time_gather(st_kernel, row, img, zw, out_shape, bw,
                                       f32_peak)
@@ -1059,7 +1239,9 @@ def kernel_call_rows(st_kernel, calls, label, bw, f32_peak, kinds=STEP_KINDS):
                                           out_shape, need_img, bw, f32_peak)
         print(msg, flush=True)
         rows[kind].append(row)
-    return rows["fwd"], rows["bwd"]
+        if kind != "bwd":
+            forward.append(row)
+    return forward, rows["bwd"]
 
 
 def step_kernel_phase(st_kernel, state, step, bw, f32_peak, label="step"):
@@ -1110,13 +1292,17 @@ def plain_step_phase(air, st_kernel, limits):
                                  for p, g in zip(params, gs)]
 
         loss_k, g_k = grads()
-        kernels = (st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda)
+        kernels = (st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda,
+                   st_kernel.st_gather_accumulate_cuda)
         st_kernel.st_gather_cuda = st_kernel.st_gather_plain
         st_kernel.st_gather_bwd_cuda = st_kernel.st_gather_bwd_plain
+        st_kernel.st_gather_accumulate_cuda = \
+            st_kernel.st_gather_accumulate_plain
         try:
             loss_p, g_p = grads()
         finally:
-            st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda = kernels
+            (st_kernel.st_gather_cuda, st_kernel.st_gather_bwd_cuda,
+             st_kernel.st_gather_accumulate_cuda) = kernels
         loss_rel = abs(loss_k - loss_p) / abs(loss_p)
         errs = {nm: ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
                 for nm, a, b in zip(names, g_k, g_p)}
@@ -1234,8 +1420,7 @@ def check_resume(air, cfg, state, workdir, **kw):
 
 def loop_phase(air, st_kernel, smi):
     """``train()`` on canonical_fast at batch 1024; a resumed run against
-    an uninterrupted one; then the CLI.  Returns the forward and backward
-    launches of the uninterrupted run."""
+    an uninterrupted one; then the CLI."""
     from attend_infer_repeat_torch.utils.graphs import WARMUP
 
     half = LOOP_STEPS // 2
@@ -1269,7 +1454,6 @@ def loop_phase(air, st_kernel, smi):
         print(f"  CLI: 2 canonical_fast steps in a new process, {dt:.1f} s "
               f"wall (start-up, build cache hit, 8+8 eval batches, save); "
               f"eval elbo {ev['elbo']:.2f}", flush=True)
-    return counts
 
 
 def state_gap(a, b):
@@ -1309,8 +1493,7 @@ def hold_to_step_limits(what, n_differ, worst, err, rows):
 def graph_phase(air, st_kernel, smi, bank):
     """``make_scan_train_step`` on canonical_fast at batch 1024 through
     its CUDA graph against the same steps run eagerly, for K = 4 and 100;
-    then step walls, eager and graphed, with remat ``save_st`` and off.
-    Returns the launch counts of that run and the step walls."""
+    then step walls, eager and graphed, with remat ``save_st`` and off."""
     from attend_infer_repeat_torch.utils import debug_mode
     from attend_infer_repeat_torch.utils.graphs import WARMUP
 
@@ -1318,6 +1501,7 @@ def graph_phase(air, st_kernel, smi, bank):
     k_full = fast.train.scan_steps
     per_step = (1 + 2 * fast.model.max_steps, 2 * fast.model.max_steps)
     st_kernel.launches = st_kernel.bwd_launches = 0
+    shapes0 = collections.Counter(st_kernel.shape_launches)
     expected = [0, 0]
     walls = {}
     for remat in (True, False):
@@ -1371,6 +1555,15 @@ def graph_phase(air, st_kernel, smi, bank):
                       f"; {N_TRAIN / w['graph_ms'] * 1e3:.1f} train img/s), "
                       f"{w['eager_ms'] / w['graph_ms']:.2f}x, batch "
                       f"{N_TRAIN} on {smi}", flush=True)
+    # each cell step's paste is the fused one, graphed and eager alike
+    fused = (st_kernel.shape_launches - shapes0)[(ACC_KEY, N_TRAIN, 20, 20,
+                                                  50, 50)]
+    steps = expected[0] // per_step[0]
+    if fused != fast.model.max_steps * steps:
+        raise AssertionError(f"graph phase: {fused} fused pastes over "
+                             f"{steps} steps")
+    print(f"  fused paste 20x20->50x50 at N={N_TRAIN}: {fused} launches, "
+          f"{fast.model.max_steps} a step", flush=True)
     on, off = walls["remat save_st"], walls["remat off"]
     print(f"  remat save_st's step-time cost: eager "
           f"{100 * (on['eager_ms'] / off['eager_ms'] - 1):+.1f} %, graphed "
@@ -1378,7 +1571,6 @@ def graph_phase(air, st_kernel, smi, bank):
     counts = (st_kernel.launches, st_kernel.bwd_launches)
     if list(counts) != expected:
         raise AssertionError(f"graph phase: launches {counts}")
-    return counts, walls
 
 
 def versus(name, fn, args, seed, batch, smi, cache=None, reps=3):
@@ -1426,8 +1618,7 @@ def entry_points_phase(air, st_kernel, smi, bank):
     ``canonical_fast`` model) and generate at batch 8192, tiled infer at
     16384, synthesis, eval and IWAE at 1024, and the single train step on
     an external host batch.  Results bit-equal and generators left in one
-    state; walls of both paths; each graph's memory pool.  Returns the
-    launch counts of that run."""
+    state; walls of both paths; each graph's memory pool."""
     from attend_infer_repeat_torch.data import make_synth_fn
     from attend_infer_repeat_torch.eval import make_iwae_eval_step
     from attend_infer_repeat_torch.serving import (
@@ -1499,7 +1690,6 @@ def entry_points_phase(air, st_kernel, smi, bank):
           f"{entry.graph.pool_bytes / 2**20:.1f} MiB; {smi}", flush=True)
     del step, eager_step, iwae, eval_step, synth
     torch.cuda.empty_cache()
-    return st_kernel.launches, st_kernel.bwd_launches
 
 
 MESH_CALLS = 5          # phase 7b: calls of each mesh step, the first captures
@@ -1554,8 +1744,7 @@ def mesh_phase(air, st_kernel, bank, smi):
     ``versus``), bit-equal: the mesh step (the graphed plain step held to
     it within the step limits, and both timed in turns), the external-
     batch and per-rank shard-map steps, the K = 4 chunk, sharded infer
-    (one pass and tiled) and generate at batch 8192.  Returns the launch
-    counts of that run."""
+    (one pass and tiled) and generate at batch 8192."""
     import torch.distributed as dist
     from attend_infer_repeat_torch.data import make_synth_fn
     from attend_infer_repeat_torch.parallel import (
@@ -1692,7 +1881,6 @@ def mesh_phase(air, st_kernel, bank, smi):
     print(f"  mesh phase launches: {counts[0]} forward, {counts[1]} backward "
           f"(a graph's first call adds its {WARMUP} warm-up runs); {smi}",
           flush=True)
-    return tuple(counts)
 
 
 def utils_phase(air, bank):
@@ -1809,8 +1997,7 @@ def workflow_phase(air, st_kernel, smi, bank):
     dataset pickles at their defaults; ``train()`` from them, resident
     (with a bit-equal resume) and streamed; the CLI with ``--data``; the
     evaluator (latest with ``--iwae``, and ``--best``); the override
-    runner; the explain-away selection.  Returns the phase's forward and
-    backward launches."""
+    runner; the explain-away selection."""
     from attend_infer_repeat_torch.data import load_data
     from attend_infer_repeat_torch.data.loader import InMemoryDataset
     from attend_infer_repeat_torch.utils.graphs import WARMUP
@@ -2066,7 +2253,6 @@ def workflow_phase(air, st_kernel, smi, bank):
     print(f"  phase 7d: {time.perf_counter() - t_phase:.1f} s wall; "
           f"{total[0]} forward and {total[1]} backward launches",
           flush=True)
-    return tuple(total)
 
 
 # Phase 7e: the analysis tools through their main(argv).
@@ -2183,8 +2369,8 @@ def analysis_phase(air, st_kernel, smi, bw, f32_peak):
     beside each device's distance from the f32 forward; one ablation and
     one probe variant.  Then both kernels against plain and timed on
     the IWAE forward's inputs at k = 25 and 64 and on the uniform presets'
-    synthesis pastes.  Returns the phase's forward and backward launches,
-    its launches by shape, and the timed rows."""
+    synthesis pastes.  Returns the phase's launches by shape and the
+    timed rows."""
     from attend_infer_repeat_torch.data import load_digit_bank
     from attend_infer_repeat_torch.ops.math import seeded_generator
 
@@ -2330,7 +2516,7 @@ def analysis_phase(air, st_kernel, smi, bw, f32_peak):
         if missing:
             raise AssertionError(f"phase 7e launched no kernel at {missing}")
         st_kernel.launches = st_kernel.bwd_launches = 0
-    return tuple(total), shapes, timed_rows
+    return shapes, timed_rows
 
 
 # Phase 8: every training preset but canonical_fast (phases 5-7), each at
@@ -2388,9 +2574,9 @@ def preset_phase(air, st_kernel, smi):
     step; the log point's graphs (synthesis, eval, and IWAE where the
     preset logs it) against eager; walls, peak memory and graph pools.
     Then ``crowded``'s cap switch inside a chunk pair of ``train()``,
-    graphed against eager.  Returns the launch counts of that run, its
-    launches by shape (``st_kernel.shape_launches``), and a ``crowded``
-    state and its single step for phase 8b."""
+    graphed against eager.  Returns its launches by shape
+    (``st_kernel.shape_launches``), and a ``crowded`` state and its
+    single step for phase 8b."""
     from attend_infer_repeat_torch.data import load_digit_bank, make_synth_fn
     from attend_infer_repeat_torch.eval import make_iwae_eval_step
     from attend_infer_repeat_torch.utils import debug_mode
@@ -2475,7 +2661,7 @@ def preset_phase(air, st_kernel, smi):
         kernel, n_ex, in_h, in_w, out_h, out_w = key
         print(f"  {kernel} {in_h}x{in_w}->{out_h}x{out_w}, N={n_ex}: {n} "
               f"launches in this phase", flush=True)
-    return (st_kernel.launches, st_kernel.bwd_launches), shapes, kept
+    return shapes, kept
 
 
 def cap_switch_phase(air, st_kernel):
@@ -2560,15 +2746,33 @@ def main() -> int:
           f"{BWD_TOL} of max(1, max|plain|), f32 and bf16)", flush=True)
     bwd_rows = bwd_phase(st_kernel, invert_where, bw, f32_peak)
 
+    print("[3c] the fused paste against the unfused ops, bit for bit",
+          flush=True)
+    acc_rows = accumulate_phase(st_kernel, invert_where, bw, f32_peak)
+
+    # each kernel's launches in the phases that run the program (4, 5, 5c,
+    # 5d, 7, 7b, 7d, 7e and 8; not the checks and timings of 3-3c, 5b, 6,
+    # 7c and 8b), from the launches by shape
+    phase_launches = collections.Counter()
+
+    def add_launches(shapes):
+        for (kernel, *_), c in shapes.items():
+            phase_launches[kernel] += c
+
+    def counted(phase, *args):
+        before = collections.Counter(st_kernel.shape_launches)
+        out = phase(*args)
+        add_launches(st_kernel.shape_launches - before)
+        return out
+
     print("[4] the serving slice", flush=True)
-    launches = slice_phase(air, st_kernel, smi)
+    counted(slice_phase, air, st_kernel, smi)
 
     print("[5] the train step", flush=True)
     from attend_infer_repeat_torch.data import load_digit_bank
     fast = air.get_config("canonical_fast")
     bank, _ = load_digit_bank(fast.data.source, fast.data.digit_size)
-    (train_launches, bwd_launches), state, step = train_phase(
-        air, st_kernel, smi, bank)
+    state, step = counted(train_phase, air, st_kernel, smi, bank)
 
     print("[5b] both kernels on one train step's own inputs", flush=True)
     step_rows, step_bwd_rows = step_kernel_phase(st_kernel, state, step, bw,
@@ -2576,23 +2780,20 @@ def main() -> int:
     del state, step
 
     print("[5c] the K-step chunk as a replayed CUDA graph", flush=True)
-    (graph_launches, graph_bwd_launches), walls = graph_phase(
-        air, st_kernel, smi, bank)
+    counted(graph_phase, air, st_kernel, smi, bank)
 
     print("[5d] the other entry points as CUDA graphs against eager",
           flush=True)
-    entry_launches, entry_bwd_launches = entry_points_phase(
-        air, st_kernel, smi, bank)
+    counted(entry_points_phase, air, st_kernel, smi, bank)
 
     print("[6] one step through the plain ST on the card", flush=True)
     plain_step_phase(air, st_kernel, STEP_LIMITS)
 
     print("[7] the training loop", flush=True)
-    loop_launches, loop_bwd_launches = loop_phase(air, st_kernel, smi)
+    counted(loop_phase, air, st_kernel, smi)
 
     print("[7b] data parallelism on a one-rank NCCL mesh", flush=True)
-    mesh_launches, mesh_bwd_launches = mesh_phase(air, st_kernel, bank,
-                                                  smi)
+    counted(mesh_phase, air, st_kernel, bank, smi)
 
     print("[7c] utils: a trace of a graphed chunk, the NaN trap", flush=True)
     utils_phase(air, bank)
@@ -2600,19 +2801,20 @@ def main() -> int:
     print("[7d] the reference workflow: dataset pickles, train() from them "
           "(resident, streamed), the CLI, the evaluator, the override "
           "runner, the explain-away selection", flush=True)
-    workflow_launches, workflow_bwd_launches = workflow_phase(
-        air, st_kernel, smi, bank)
+    counted(workflow_phase, air, st_kernel, smi, bank)
 
     print("[7e] the analysis tools: overlap characterization, overlap "
           "errors, supervised ceiling, IWAE k-sweep, CPU-card parity, "
           "ablation and probe runners", flush=True)
-    (analysis_launches, analysis_bwd_launches), analysis_shapes, \
-        analysis_rows = analysis_phase(air, st_kernel, smi, bw, f32_peak)
+    analysis_shapes, analysis_rows = analysis_phase(air, st_kernel, smi, bw,
+                                                    f32_peak)
+    add_launches(analysis_shapes)
 
     print(f"[8] every other training preset at full width: K = {PRESET_K} "
           f"steps graphed against eager", flush=True)
-    (preset_launches, preset_bwd_launches), preset_shapes, (
-        crowded, crowded_step) = preset_phase(air, st_kernel, smi)
+    preset_shapes, (crowded, crowded_step) = preset_phase(air, st_kernel,
+                                                           smi)
+    add_launches(preset_shapes)
 
     print("[8b] both kernels on one crowded train step's own inputs",
           flush=True)
@@ -2625,7 +2827,7 @@ def main() -> int:
         raise AssertionError(f"phase 8 launched no kernel at crowded's step "
                              f"shapes {sorted(missing)}")
 
-    def kernel_line(name, source, replaces, launches, rows, head_case):
+    def kernel_line(name, source, replaces, rows, head_case):
         # the launches of phase 8 by shape: every preset's, crowded's too
         by_shape = [{"shape": f"{h}x{w}->{oh}x{ow}", "n": n, "launches": c}
                     for (k, n, h, w, oh, ow), c in sorted(
@@ -2638,7 +2840,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"attend_infer_repeat_torch/csrc/{source}",
             "replaces": f"attend_infer_repeat_tpu/ops/pallas_st.py:{replaces}",
-            "launches": launches,
+            "launches": phase_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_abs_err_bf16": max(r["max_abs_err_bf16"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -2653,19 +2855,17 @@ def main() -> int:
                     analysis_shapes.items()) if k == name],
         }
 
+    fwd_rows = rows + step_rows + crowded_rows + analysis_rows
+    fused = [r.get("key", ("",))[0] == ACC_KEY for r in fwd_rows]
     kernels = [
         kernel_line("st_gather", "st_gather.cu", 54,
-                    launches + train_launches + graph_launches
-                    + entry_launches + loop_launches + mesh_launches
-                    + workflow_launches + analysis_launches
-                    + preset_launches,
-                    rows + step_rows + crowded_rows + analysis_rows,
+                    [r for r, f in zip(fwd_rows, fused) if not f],
                     lambda c, n: (c, n) == ("gather 50x50->20x20", N_SERVE)),
+        kernel_line(ACC_KEY, "st_gather.cu", 54,
+                    acc_rows + [r for r, f in zip(fwd_rows, fused) if f],
+                    lambda c, n: c.startswith("fused paste 20x20->50x50 "
+                                              "(serve)")),
         kernel_line("st_gather_bwd", "st_gather_bwd.cu", 155,
-                    bwd_launches + graph_bwd_launches + entry_bwd_launches
-                    + loop_bwd_launches + mesh_bwd_launches
-                    + workflow_bwd_launches + analysis_bwd_launches
-                    + preset_bwd_launches,
                     bwd_rows + step_bwd_rows + crowded_bwd_rows,
                     lambda c, n: c.startswith("step paste bwd")),
     ]

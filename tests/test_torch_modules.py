@@ -2,6 +2,8 @@
 ``flax.apply``, in f32 and in the bf16 mix; the parameter layout and the
 initialization against flax's."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -227,3 +229,40 @@ def test_init_follows_flax():
                * np.sqrt(576) - 1.0) < 0.05
     again = AIRModel(tc, use_baseline=True, device="cpu", seed=0).state_dict()
     assert all(torch.equal(sd[k], again[k]) for k in sd)
+
+
+@pytest.mark.parametrize("switches", [
+    {}, FAST, dict(FAST, remat=True, remat_policy="save_st"),
+    dict(remat=True, remat_policy="full"),
+    dict(FAST, canvas_rebuild=True)],
+    ids=["f32", "canonical_fast", "save_st", "full", "rebuild"])
+def test_cell_canvas_update_is_the_unfused_one(switches, monkeypatch):
+    """The cell's fused canvas update (``st_paste_accumulate``) leaves the
+    model's outputs and every parameter gradient bit-equal to the unfused
+    ops, with an f32 and a bf16 carry, with and without remat."""
+    from attend_infer_repeat_torch.models.air import AIRModel
+    from attend_infer_repeat_torch.ops import st_kernel
+    from attend_infer_repeat_torch.utils.graphs import leaves
+    from torch_parity import images
+
+    _, tc = model_configs(**switches)
+    model = AIRModel(tc, use_baseline=True, device="cpu", seed=2)
+    x = torch.from_numpy(images(8, seed=4))
+    noise = model.sample_noise(8, torch.Generator().manual_seed(5))
+
+    def run():
+        out = model(x, 0.3, noise=noise)
+        loss = -out.elbo.sum() + out.baseline.square().sum()
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return out, grads
+
+    fused = run()
+    # the paste (``STGather``), the presence mask, the f32 add and the cast
+    # as separate ops
+    monkeypatch.setattr(st_kernel.STGatherAccumulate, "apply",
+                        functools.partial(st_kernel.st_gather_accumulate_plain,
+                                          paste=st_kernel.STGather.apply))
+    plain = run()
+    for got, want in zip(leaves(fused), leaves(plain)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert fused[1][0].abs().max().item() > 0

@@ -2,6 +2,8 @@
 path and the Pallas kernel in interpret mode), the 4-tap oracle, edge
 cases, the plain VJP, and the kernel module's CPU-side contract."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -216,3 +218,84 @@ def test_chip_smoke_gather_bwd_work_counts_needed_cotangent(in_shape,
         assert nbytes == (4 * (img.size + g.numel()) + 32 * n
                           + img_bytes)
         assert flops == fwd_flops * (6 if need_img else 4)
+
+
+# --- the fused paste: the cell's canvas update --------------------------------
+
+# The cell's canvas update as separate ops: the paste (``STGather``),
+# the presence mask, the f32 add, the cast back to the carry.
+UNFUSED = functools.partial(st_kernel.st_gather_accumulate_plain,
+                            paste=st_kernel.STGather.apply)
+
+
+def update_inputs(batch_shape, canvas_shape, glimpse_shape, carry, seed):
+    """A carried canvas (negative values and -0 among them), glimpses,
+    windows partly and wholly off the canvas, and presence 0 and 1."""
+    gen = torch.Generator().manual_seed(seed)
+    n = int(np.prod(batch_shape))
+    canvas = torch.randn((n,) + canvas_shape, generator=gen)
+    canvas[0, 0, :3] = -0.0
+    glimpse = torch.randn((n,) + glimpse_shape, generator=gen)
+    z_where = torch.cat([0.2 + torch.rand((n, 2), generator=gen),
+                         1.6 * torch.rand((n, 2), generator=gen) - 0.8], 1)
+    z_where[1::4, 2:] = 5.0                     # wholly off the canvas
+    z_pres = (torch.arange(n) % 3 != 0).float()[:, None]
+    return tuple(a.reshape(tuple(batch_shape) + a.shape[1:]) for a in (
+        canvas.to(carry), glimpse, z_where, z_pres))
+
+
+@pytest.mark.parametrize("batch_shape", [(9,), (2, 5)])
+@pytest.mark.parametrize("carry", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paste_accumulate_is_the_unfused_update(carry, batch_shape,
+                                                monkeypatch):
+    """``st_paste_accumulate`` on the CPU (``STGatherAccumulate``'s plain
+    path) gives the separate ops' canvas and gradients bit for bit."""
+    canvas, glimpse, z_where, z_pres = update_inputs(batch_shape, (24, 24),
+                                                     (10, 10), carry, 5)
+    cot = torch.randn(canvas.shape, generator=torch.Generator().manual_seed(
+        6)).to(carry)
+    results = []
+    for unfused in (False, True):
+        if unfused:
+            monkeypatch.setattr(st_kernel.STGatherAccumulate, "apply",
+                                UNFUSED)
+        leaves = [a.clone().requires_grad_() for a in (canvas, glimpse,
+                                                       z_where)]
+        out = tst.st_paste_accumulate(*leaves, z_pres)
+        out.backward(cot)
+        results.append((out.detach(), *(a.grad for a in leaves)))
+    fused, plain = results
+    assert fused[0].dtype == carry and fused[0].shape == canvas.shape
+    for got, want in zip(fused, plain):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert not torch.equal(fused[0], canvas)     # something was pasted
+
+
+@pytest.mark.parametrize("carry", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gather_accumulate_function_on_cpu(carry):
+    """``STGatherAccumulate`` on CPU tensors: the plain ops (the gather's
+    plain forward and backward, once each), no launch; ``z_pres`` takes no
+    gradient; the CUDA wrapper refuses CPU tensors."""
+    canvas, glimpse, z_where, z_pres = update_inputs((6,), (24, 24),
+                                                     (10, 10), carry, 7)
+    zw = tst.invert_where(z_where)
+    pres = z_pres[:, 0]
+    before = st_kernel.launches, st_kernel.bwd_launches
+    g = glimpse.clone().requires_grad_()
+    out = st_kernel.STGatherAccumulate.apply(canvas, g, zw, pres)
+    assert torch.equal(out, st_kernel.st_gather_accumulate_plain(
+        canvas, glimpse, zw, pres))
+    out.float().sum().backward()
+    # z_pres = 0 pastes nothing, so its examples' glimpses get no gradient
+    assert g.grad[pres == 0].abs().max().item() == 0
+    assert g.grad[pres == 1].abs().max().item() > 0
+    assert (st_kernel.launches, st_kernel.bwd_launches) == before
+    with pytest.raises(ValueError, match="z_pres"):
+        st_kernel.STGatherAccumulate.apply(canvas, glimpse, zw,
+                                           pres.clone().requires_grad_())
+    with pytest.raises(ValueError, match="CUDA"):
+        st_kernel.st_gather_accumulate_cuda(canvas, glimpse, zw, pres)
+    assert ("extern \"C\" int st_gather_accumulate("
+            in st_kernel.SOURCE.read_text())

@@ -14,6 +14,9 @@ relative) fails them.  Forward: max abs error 1e-5 in f32 and 1e-3 in
 bf16 mode (well under one bf16 ulp of a pixel).  Backward: g_img to 1e-5
 and g_zw to 1e-4 of max(1, max|plain|) (each g_zw sums thousands of
 products with cancellation, in another order than the plain matmuls).
+The fused paste (paste, presence mask, f32 add and cast to the carry in
+one kernel) does the unfused ops' arithmetic, so it is held to them bit
+for bit, forward and backward.
 """
 
 import dataclasses
@@ -496,3 +499,165 @@ def test_backward_nonfinite_image_matches_plain(cuda, in_shape, out_shape,
     alone = st_kernel.st_gather_bwd_cuda(img[2:], zw[2:], g[2:], out_shape,
                                          mode)
     assert torch.equal(k[0][2:], alone[0]) and torch.equal(k[1][2:], alone[1])
+
+
+# --- the fused paste: paste, presence mask, f32 add and carry cast -----------
+
+CARRIES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+# What the fused kernel replaces, on the card: the paste kernel, the
+# presence mask, the f32 add and the cast back to the carry.
+unfused_update = functools.partial(st_kernel.st_gather_accumulate_plain,
+                                   paste=st_kernel.STGather.apply)
+
+
+def assert_bits(got, want):
+    """Equal bit for bit, with NaN at the same entries (whatever their
+    payload)."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    assert torch.equal(got.view(ints[got.dtype])[~nan],
+                       want.view(ints[want.dtype])[~nan])
+
+
+def update_inputs(n, canvas_shape, carry, seed, glimpse=None, zw=None):
+    """A carried canvas (with -0 in it), 20x20 glimpses, windows partly
+    off the canvas and every fifth wholly off, presence 0 and 1."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    canvas = torch.randn((n,) + tuple(canvas_shape), generator=gen,
+                         device="cuda").to(carry)
+    canvas[0, 0, :4] = -0.0
+    if glimpse is None:
+        glimpse = torch.rand((n, 20, 20), generator=gen, device="cuda")
+    if zw is None:
+        where = torch.cat([0.2 + torch.rand((n, 2), generator=gen,
+                                            device="cuda"),
+                           1.6 * torch.rand((n, 2), generator=gen,
+                                            device="cuda") - 0.8], 1)
+        where[::5, 2] = 5.0
+        zw = tst.invert_where(where).contiguous()
+    z_pres = (torch.rand(n, generator=gen, device="cuda") < 0.6).float()
+    z_pres[:2] = torch.tensor([0.0, 1.0])
+    return canvas, glimpse, zw, z_pres
+
+
+def check_fused(canvas, glimpse, zw, z_pres, seed=0):
+    """The fused kernel against the unfused ops, bit for bit: the canvas,
+    and the canvas's, the glimpse's and the window's gradients."""
+    out = st_kernel.st_gather_accumulate_cuda(canvas, glimpse, zw, z_pres)
+    assert_bits(out, unfused_update(canvas, glimpse, zw, z_pres))
+    g = torch.randn(canvas.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(seed))
+    g = g.to(canvas.dtype)
+    grads = []
+    for fn in (st_kernel.STGatherAccumulate.apply, unfused_update):
+        leaves = [t.clone().requires_grad_() for t in (canvas, glimpse, zw)]
+        fn(*leaves, z_pres).backward(g)
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert_bits(got, want)
+    return out
+
+
+@pytest.mark.parametrize("carry", sorted(CARRIES))
+@pytest.mark.parametrize("n, canvas_shape", [
+    (1024, (50, 50)), (8192, (50, 50)), (1024, (100, 100)), (17, (50, 50)),
+    (5, (9, 13)),
+])
+def test_fused_paste_is_the_unfused_chain(cuda, carry, n, canvas_shape):
+    """At the cells' shapes (50x50 <- 20x20 at the train and serve batch,
+    crowded's 100x100), a ragged N and an odd canvas (one pixel a run)."""
+    canvas, glimpse, zw, z_pres = update_inputs(n, canvas_shape,
+                                                CARRIES[carry], n)
+    out = check_fused(canvas, glimpse, zw, z_pres, n)
+    # presence 0 leaves the canvas as it was (an exact f32 round trip)
+    assert torch.equal(out[0], canvas[0])
+    assert not torch.equal(out[1], canvas[1])
+
+
+@pytest.mark.parametrize("carry", sorted(CARRIES))
+def test_fused_paste_on_a_misaligned_canvas(cuda, carry):
+    """A canvas that starts one element into its buffer takes the one
+    pixel a run path, with the same bits."""
+    canvas, glimpse, zw, z_pres = update_inputs(33, (50, 50), CARRIES[carry],
+                                                3)
+    buf = torch.empty(canvas.numel() + 1, dtype=canvas.dtype, device="cuda")
+    shifted = buf[1:].view(canvas.shape)
+    shifted.copy_(canvas)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 8
+    check_fused(shifted, glimpse, zw, z_pres)
+
+
+@pytest.mark.parametrize("carry", sorted(CARRIES))
+@pytest.mark.parametrize("kind", WINDOW_KINDS)
+def test_fused_paste_on_branch_windows(cuda, carry, kind):
+    """The windows that reach each branch of the gather, as pastes."""
+    n = 257
+    zw = branch_where(kind, n, (20, 20), (50, 50), True, 21)
+    canvas, glimpse, zw, z_pres = update_inputs(n, (50, 50), CARRIES[carry],
+                                                22, zw=zw)
+    check_fused(canvas, glimpse, zw, z_pres)
+
+
+@pytest.mark.parametrize("carry", sorted(CARRIES))
+def test_fused_paste_nan_windows(cuda, carry):
+    """A NaN row or column coordinate: NaN where the unfused ops have it,
+    with presence 0 too (0 * NaN)."""
+    canvas, glimpse, zw, z_pres = update_inputs(4, (50, 50), CARRIES[carry],
+                                                23)
+    zw[1, 0] = float("nan")
+    zw[2, 3] = float("nan")
+    z_pres[:] = torch.tensor([1.0, 1.0, 0.0, 1.0])
+    out = check_fused(canvas, glimpse, zw, z_pres)
+    assert torch.isnan(out[1:3]).any(1).any(1).all()
+
+
+@pytest.mark.parametrize("carry", sorted(CARRIES))
+@pytest.mark.parametrize("live", [True, False], ids=["live", "dead"])
+@pytest.mark.parametrize("value", NONFINITE_VALUES, ids=["nan", "inf", "-inf"])
+def test_fused_paste_nonfinite_glimpse(cuda, value, live, carry):
+    """``nonfinite_inputs``' glimpses (a NaN or an infinity at a tapped
+    and at an untapped pixel): the dense fallback's pattern, with the
+    update, bit for bit; presence 0 on one of them."""
+    img, zw = nonfinite_inputs(cuda, (20, 20), (50, 50),
+                               NONFINITE_SHAPES[1][2], True, value, live)
+    canvas, glimpse, zw, z_pres = update_inputs(3, (50, 50), CARRIES[carry],
+                                                24, glimpse=img, zw=zw)
+    z_pres[:] = torch.tensor([1.0, 0.0, 1.0])
+    out = check_fused(canvas, glimpse, zw, z_pres)
+    assert not torch.isfinite(out[:2]).all()
+
+
+def test_fused_paste_counts_and_refuses(cuda):
+    """A launch counts in ``launches`` and under its shape; the wrapper
+    refuses a canvas that is not contiguous or not f32/bf16, and shapes
+    that do not match."""
+    canvas, glimpse, zw, z_pres = update_inputs(6, (50, 50), torch.bfloat16,
+                                                25)
+    before = st_kernel.launches
+    key = ("st_gather_accumulate", 6, 20, 20, 50, 50)
+    shaped = st_kernel.shape_launches[key]
+    out = tst.st_paste_accumulate(canvas.reshape(2, 3, 50, 50),
+                                  glimpse.reshape(2, 3, 20, 20),
+                                  tst.invert_where(zw).reshape(2, 3, 4),
+                                  z_pres.reshape(2, 3, 1))
+    assert out.shape == (2, 3, 50, 50) and out.dtype == torch.bfloat16
+    assert st_kernel.launches == before + 1
+    assert st_kernel.shape_launches[key] == shaped + 1
+    fn = st_kernel.st_gather_accumulate_cuda
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(canvas.transpose(1, 2), glimpse, zw, z_pres)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="canvas"):
+            fn(canvas.to(dtype), glimpse, zw, z_pres)
+    with pytest.raises(TypeError):
+        fn(canvas, glimpse.double(), zw, z_pres)
+    with pytest.raises(ValueError, match="z_pres"):
+        fn(canvas, glimpse, zw, z_pres[:5].contiguous())
+    with pytest.raises(ValueError, match="one device"):
+        fn(canvas.cpu(), glimpse, zw, z_pres)
+    assert st_kernel.launches == before + 1
