@@ -16,10 +16,14 @@ each seed costs one call of the entry and the reference.
 - control: the reference computed one precision below the configuration
   (``Precision(lower=True)``: fp8 for bfloat16, TF32 for float32) in the
   program's place.
-- faults (train cells), in the reference put in the program's place: a
-  step that leaves its state unchanged; one that moves the baseline
-  group alone and leaves the model group unchanged; the loss over half
-  of the batch; a step's loss altered by 1 %.
+- faults (train cells), in the reference put in the program's place, by
+  the configuration's objective (``FAULTS``).  Both: a step that leaves
+  its state unchanged; the loss over half of the batch; a step's loss
+  altered by 1 %.  ``elbo``: a step that moves the baseline group alone
+  and leaves the model group unchanged.  ``iwae`` (VIMCO, no baseline
+  group): each particle's advantage without its leave-one-out baseline,
+  the bound itself; the mean of the particles' log weights in place of
+  the bound, ``logsumexp - log k``.
 
 Prints one JSON line a reading, then per number the largest program
 reading and the smallest control and fault readings.
@@ -35,6 +39,7 @@ import time
 import torch
 
 from air_bench import layout, program, serve
+from air_bench.reference import air as rair
 from air_bench.reference import compare
 from air_bench.reference import train as rtrain
 from air_bench.reference.air import sample_noise
@@ -54,31 +59,65 @@ def _half(out):
                 else v) for k, v in out.items()}
 
 
-def _altered(loss, out, beta):
-    value, terms = loss(out, beta)
-    return 1.01 * value, terms
+def _half_nvil(clean):
+    return lambda out, beta: clean(_half(out), beta)
 
 
+def _half_vimco(clean):
+    def half(log_w, log_q):
+        cut = log_w.shape[1] // 2
+        return clean(log_w[:, :cut], log_q[:, :cut])
+    return half
+
+
+def _altered(clean):
+    def altered(*args):
+        value, terms = clean(*args)
+        return 1.01 * value, terms
+    return altered
+
+
+def _no_loo(clean):
+    return torch.zeros_like
+
+
+def _elbo_mean(clean):
+    return lambda log_w: log_w.mean(0)
+
+
+#: By objective: each fault's ``groups`` that the update moves (every
+#: group, unless given) and the reference function it wraps, ``patch =
+#: (module, name, wrap)``: ``wrap(clean)`` takes the function's place for
+#: the fault's steps.
 FAULTS = {
-    "unchanged": dict(groups=(), loss=None),
-    "model_unchanged": dict(groups=("baseline",), loss=None),
-    "half_batch": dict(groups=rtrain.Trainer.groups,
-                       loss=lambda loss, out, beta: loss(_half(out), beta)),
-    "altered_loss": dict(groups=rtrain.Trainer.groups, loss=_altered),
+    "elbo": {
+        "unchanged": dict(groups=()),
+        "model_unchanged": dict(groups=("baseline",)),
+        "half_batch": dict(patch=(rtrain, "nvil_loss", _half_nvil)),
+        "altered_loss": dict(patch=(rtrain, "nvil_loss", _altered)),
+    },
+    "iwae": {
+        "unchanged": dict(groups=()),
+        "half_batch": dict(patch=(rtrain, "vimco_loss", _half_vimco)),
+        "altered_loss": dict(patch=(rtrain, "vimco_loss", _altered)),
+        "no_loo": dict(patch=(rair, "loo_bounds", _no_loo)),
+        "elbo_mean": dict(patch=(rair, "iwae_bound", _elbo_mean)),
+    },
 }
 
 
 def _faulty(cfg, w, bank, seed, fault):
     trainer = rtrain.Trainer(cfg, w, bank, seed)
-    trainer.groups = fault["groups"]
-    if fault["loss"] is None:
+    trainer.groups = fault.get("groups", trainer.groups)
+    if "patch" not in fault:
         return trainer.follow(3)
-    clean = rtrain.nvil_loss
-    rtrain.nvil_loss = lambda out, beta: fault["loss"](clean, out, beta)
+    module, name, wrap = fault["patch"]
+    clean = getattr(module, name)
+    setattr(module, name, wrap(clean))
     try:
         return trainer.follow(3)
     finally:
-        rtrain.nvil_loss = clean
+        setattr(module, name, clean)
 
 
 def _requests(cell, seed, dev) -> list:
@@ -128,7 +167,7 @@ def train_readings(cell, seeds, controls, dev):
             g.count = 0
         state.step, state.base_seed = 0, seed
         state, rows = scan(state)
-        first = {k: rows[k][:3].tolist() for k in rtrain.READINGS}
+        first = {k: rows[k][:3].tolist() for k in rtrain.readings(cfg)}
         ref = rtrain.Trainer(cfg, w, bank, seed).follow(3)
         out["program"].append(_say("program", seed,
                                    compare.train_numbers(first, ref)))
@@ -139,7 +178,7 @@ def train_readings(cell, seeds, controls, dev):
                                    control_numbers(cell, seed, dev)))
         w = weights.make(cfg, use_baseline, seed, dev)
         ref = rtrain.Trainer(cfg, w, bank, seed).follow(3)
-        for name, fault in FAULTS.items():
+        for name, fault in FAULTS[cfg["train"]["objective"]].items():
             got = _faulty(cfg, w, bank, seed, fault)
             out.setdefault(name, []).append(
                 _say(name, seed, compare.train_numbers(got, ref)))

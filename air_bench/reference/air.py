@@ -1,17 +1,43 @@
-"""AIR in plain PyTorch: parameters, forward, ELBO and the NVIL loss.
+"""AIR in plain PyTorch: parameters, forward, ELBO, and the NVIL and
+VIMCO losses.
 
 Written from the model's description (Eslami et al. 2016) in the form
 this repository trains it: a residual-encoding inference network (MLP
 encoder, LSTM, a Gaussian window posterior, a bilinear glimpse, a
 Gaussian appearance posterior, a presence Bernoulli on a monotone chain,
 an MLP decoder pasted back into the canvas), the analytic KLs masked by
-presence, the exact KL of the count, and the NVIL surrogate with an
-input-dependent baseline.  Parameters are a dict of float32 tensors by
+presence, the exact KL of the count, the NVIL surrogate with an
+input-dependent baseline, and the k-particle importance-weighted bound
+trained with VIMCO's leave-one-out control variates (Mnih & Rezende 2016,
+arXiv:1602.06725).  Parameters are a dict of float32 tensors by
 name; each product runs in the precision the configuration states
 (``precision.Precision``).  Configurations are the dicts of
 ``air_bench/configs/<name>.json``; the options no configuration there
 uses (a convolutional stem, a rebuilt canvas, advantage normalisation,
-an L2 term, the VIMCO objective) raise.
+an L2 term) raise.  The forward is the same under either objective; the
+trainer (``reference.train``) forms the loss that the configuration's
+``train.objective`` names.
+
+Where the VIMCO loss departs from the paper, it does so as this
+repository trains AIR:
+
+- Only the presence chain is scored.  The paper scores every latent; here
+  the windows and appearances are reparameterised, so the pathwise
+  gradient of the bound reaches them and each particle's advantage
+  multiplies the log-probability of its presence samples alone (the
+  chain's, each step's masked once the chain has stopped).
+- A particle's log weight is ``log p(x|z) + sum_t pres_t [log p(z_where)
+  - log q(z_where) + kl_beta (log p(z_what) - log q(z_what))] + log p(n)
+  - log q(n|x)``: the appearance term is scaled by the warm-up's
+  ``kl_beta`` (1 after it), and the presence chain enters as its count
+  ``n``, whose probability equals that of the stopping pattern under both
+  the count posterior and the truncated geometric prior.  Both count
+  probabilities are floored at 1e-20 before the log, and a presence
+  probability is clipped to [1e-7, 1 - 1e-7] inside its log-probability
+  (straight through), as in the NVIL loss.
+- The loss is the batch mean of ``-bound - sum_j advantage_j log
+  q(pres_j)``; the bound's gradient is taken through every particle's
+  weight.
 """
 
 from __future__ import annotations
@@ -36,7 +62,6 @@ def check_supported(cfg: dict) -> None:
         "model.canvas_rebuild": m["canvas_rebuild"],
         "train.advantage_norm": t["advantage_norm"],
         "train.l2_weight": bool(t["l2_weight"]),
-        "train.objective != elbo": t["objective"] != "elbo",
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -271,8 +296,8 @@ class Model:
         kl_steps = tabular_kl(pmf, geometric_prior(p_success, t_steps, dev))
         out = dict(
             elbo=log_lik - kl_what - kl_where - kl_steps, kl_what=kl_what,
-            kl_where=kl_where, kl_steps=kl_steps,
-            canvas=canvas, steps=s,
+            kl_where=kl_where, kl_steps=kl_steps, log_lik=log_lik,
+            count_pmf=pmf, canvas=canvas, steps=s,
             mode_steps=torch.argmax(pmf, dim=-1).to(torch.float32),
             baseline=None)
         if "baseline.mlp.dense.0.weight" in self.p:
@@ -306,7 +331,9 @@ def clip_preserve(x, lo, hi):
 
 def normal_log_prob(x, loc, scale):
     z = (x - loc) / scale
-    return -0.5 * (z * z + math.log(2.0 * math.pi)) - math.log(scale)
+    log_scale = torch.log(scale) if torch.is_tensor(scale) \
+        else math.log(scale)
+    return -0.5 * (z * z + math.log(2.0 * math.pi)) - log_scale
 
 
 def normal_kl(loc_q, scale_q, loc_p, scale_p):
@@ -339,6 +366,14 @@ def tabular_kl(q, p):
     return torch.sum(q * (torch.log(q) - torch.log(p)), dim=-1)
 
 
+def presence_log_prob(s: dict):
+    """``(B, T)`` log q of each step's presence sample, masked once the
+    chain has stopped."""
+    p = clip_preserve(s["pres_prob"], 1e-7, 1.0 - 1e-7)
+    return s["pres_prev"] * (s["pres"] * torch.log(p)
+                             + (1.0 - s["pres"]) * torch.log1p(-p))
+
+
 def nvil_loss(out: dict, kl_beta):
     """The NVIL surrogate: reparameterised ELBO (z_what KL weighted by
     ``kl_beta``), REINFORCE on the presence chain against the baseline,
@@ -346,9 +381,7 @@ def nvil_loss(out: dict, kl_beta):
     means of the ELBO and its KL terms, and the baseline's regression."""
     s = out["steps"]
     obj = out["elbo"] + (1.0 - kl_beta) * out["kl_what"]
-    p = clip_preserve(s["pres_prob"], 1e-7, 1.0 - 1e-7)
-    log_q = s["pres_prev"] * (s["pres"] * torch.log(p)
-                              + (1.0 - s["pres"]) * torch.log1p(-p))
+    log_q = presence_log_prob(s)
     signal = obj.detach()[:, None]
     if out["baseline"] is not None:
         advantage = signal - out["baseline"].detach()
@@ -359,3 +392,52 @@ def nvil_loss(out: dict, kl_beta):
     terms = {k: torch.mean(out[k]).detach()
              for k in ("elbo", "kl_what", "kl_where", "kl_steps")}
     return loss, dict(terms, baseline_mse=mse.detach())
+
+
+def log_weight(out: dict, m: dict, where_prior, p_success, kl_beta):
+    """``(B,)`` one particle's log importance weight at its samples."""
+    s = out["steps"]
+    idx = list(where_indices(m))
+    z_where = s["z_where"][..., idx]
+    where = torch.sum(normal_log_prob(z_where, *where_prior)
+                      - normal_log_prob(z_where, s["where_loc"],
+                                        s["where_scale"]), -1)
+    what = torch.sum(normal_log_prob(s["z_what"], 0.0, 1.0)
+                     - normal_log_prob(s["z_what"], s["what_loc"],
+                                       s["what_scale"]), -1)
+    latents = torch.sum(s["pres"] * (where + kl_beta * what), -1)
+    n = torch.sum(s["pres"], -1).long()
+    prior = geometric_prior(p_success, m["max_steps"], n.device)
+    count = torch.log(prior[n] + 1e-20) - torch.log(
+        out["count_pmf"].gather(-1, n[:, None])[:, 0] + 1e-20)
+    return out["log_lik"] + latents + count
+
+
+def iwae_bound(log_w):
+    """``log (1/k) sum_j w_j`` over the particles, the leading axis."""
+    return torch.logsumexp(log_w, 0) - math.log(log_w.shape[0])
+
+
+def loo_bounds(log_w):
+    """``(k, B)``: row j is the bound with particle j's log weight replaced
+    by the mean of the others' (VIMCO's geometric-mean baseline)."""
+    k = log_w.shape[0]
+    rows = []
+    for j in range(k):
+        others = torch.cat([log_w[:j], log_w[j + 1:]])
+        rows.append(iwae_bound(torch.cat([log_w[:j], others.mean(0)[None],
+                                          log_w[j + 1:]])))
+    return torch.stack(rows)
+
+
+def vimco_loss(log_w, log_q):
+    """The VIMCO surrogate of the importance-weighted bound.  ``log_w``:
+    ``(k, B)`` the particles' log weights; ``log_q``: ``(k, B)`` the
+    log-probability of each particle's presence chain.  Each particle's
+    advantage is the bound less its leave-one-out bound, detached.
+    Returns ``(loss, terms)``: the batch means of the loss and the
+    bound."""
+    bound = iwae_bound(log_w)
+    advantage = (bound[None] - loo_bounds(log_w)).detach()
+    loss = torch.mean(-bound - torch.sum(advantage * log_q, 0))
+    return loss, {"iwae_bound": torch.mean(bound).detach()}

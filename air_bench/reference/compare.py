@@ -2,12 +2,15 @@
 
 Training: the reference follows the first three steps of the program's
 first call from the same weights, data and noise.  ``<reading>_gap.<s>``
-is the relative gap of what step s reports (``reference.train.READINGS``):
-the surrogate loss, the ELBO and its three KL terms (batch means: the
-model group's forward, and from step 2 its update), the baseline's
-regression (the baseline group's) and the whole gradient's norm before
-clipping.  The loss and the gradient are almost all the baseline's
-regression at these weights, so the ELBO's terms carry the model group.
+is the relative gap of what step s reports (``reference.train.READINGS``
+of the configuration's objective).  Under ``elbo``: the surrogate loss,
+the ELBO and its three KL terms (batch means: the model group's forward,
+and from step 2 its update), the baseline's regression (the baseline
+group's) and the whole gradient's norm before clipping; the loss and the
+gradient are almost all the baseline's regression at these weights, so
+the ELBO's terms carry the model group.  Under ``iwae``: the VIMCO loss,
+the bound, the ELBO and its KL terms (means over particles and batch) and
+the gradient's norm.
 Each step is its own number: from step 2 on the gaps grow, since
 RMSProp's first update moves every weight by about the learning rate
 whatever its gradient's size, so a rounding that turns the sign of a

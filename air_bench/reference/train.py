@@ -1,11 +1,15 @@
-"""The training step in plain PyTorch: data, forward, NVIL gradient and
-the two-group RMSProp update.
+"""The training step in plain PyTorch: data, forward, the gradient of the
+configuration's objective and the two-group RMSProp update.
 
 Step ``s`` of a run with base seed ``b`` draws its canvases from a device
 generator seeded with ``w[0]`` and the forward's noise from one seeded
 with ``w[1]``, ``w = SeedSequence((b, s)).generate_state(2, uint64)``: the
 seeding the trained program documents, so that the reference sees the
-same batch and noise as the program's step ``s``.
+same batch and noise as the program's step ``s``.  The objective
+``elbo`` runs one forward a step and takes the NVIL loss; ``iwae`` runs
+``iwae_particles`` forwards of the same batch, drawing each one's noise in
+turn from the step's model generator, and takes the VIMCO loss of their
+log weights.
 
 Per step: the prior's success probability annealed in log space from
 ``init_success_prob`` to ``final_success_prob`` over
@@ -25,16 +29,37 @@ import numpy as np
 import torch
 
 from air_bench.reference import synth
-from air_bench.reference.air import Model, nvil_loss, sample_noise
+from air_bench.reference.air import (Model, log_weight, nvil_loss,
+                                     presence_log_prob, sample_noise,
+                                     vimco_loss)
 from air_bench.reference.precision import Precision
 
 RMS_DECAY, RMS_EPS = 0.9, 1e-8
-#: What a step reports, under the program's names: the surrogate loss,
-#: the ELBO's batch mean and its KL terms (the model group's forward),
-#: the baseline's regression (the baseline group's) and the whole
-#: gradient's norm before clipping.
-READINGS = ("loss", "elbo", "kl_what", "kl_where", "kl_steps",
-            "baseline_mse", "grad_norm")
+#: What a step reports, under the program's names, by objective.
+#: ``elbo``: the surrogate loss, the ELBO's batch mean and its KL terms
+#: (the model group's forward), the baseline's regression (the baseline
+#: group's) and the whole gradient's norm before clipping.  ``iwae``: the
+#: VIMCO loss, the bound's batch mean, the ELBO and its KL terms (means
+#: over the particles and the batch) and the gradient's norm; there is no
+#: baseline.
+READINGS = {
+    "elbo": ("loss", "elbo", "kl_what", "kl_where", "kl_steps",
+             "baseline_mse", "grad_norm"),
+    "iwae": ("loss", "iwae_bound", "elbo", "kl_what", "kl_where",
+             "kl_steps", "grad_norm"),
+}
+_TERMS = ("elbo", "kl_what", "kl_where", "kl_steps")
+
+
+def readings(cfg: dict) -> tuple:
+    """The readings a step of ``cfg`` reports."""
+    return READINGS[cfg["train"]["objective"]]
+
+
+def particles(cfg: dict) -> int:
+    """Forwards of the model a train step of ``cfg`` runs on each image."""
+    t = cfg["train"]
+    return t["iwae_particles"] if t["objective"] == "iwae" else 1
 
 
 def step_seeds(base_seed: int, step: int):
@@ -93,6 +118,7 @@ class Trainer:
     def __init__(self, cfg: dict, params: dict, bank: torch.Tensor,
                  base_seed: int, prec: Precision | None = None):
         self.cfg, self.bank, self.base_seed = cfg, bank, base_seed
+        self.readings = readings(cfg)
         self.prec = prec or Precision()
         self.params = {k: v.detach().clone().requires_grad_(True)
                        for k, v in params.items()}
@@ -102,28 +128,43 @@ class Trainer:
         self.counts = {"model": 0, "baseline": 0}
 
     def batch(self, step: int):
-        """The step's canvases and forward noise."""
+        """The step's canvases and each forward's noise, in the order the
+        program draws them."""
         dev = self.bank.device
         g_data, g_model = (torch.Generator(dev).manual_seed(s)
                            for s in step_seeds(self.base_seed, step))
         imgs, nums = synth.synthesize(self.bank, self.cfg["data"],
                                       self.cfg["train"]["batch_size"],
                                       g_data, self.prec)
-        noise = sample_noise(self.cfg["model"], imgs.shape[0], g_model, dev)
-        return imgs, nums, noise
+        noises = [sample_noise(self.cfg["model"], imgs.shape[0], g_model, dev)
+                  for _ in range(particles(self.cfg))]
+        return imgs, nums, noises
+
+    def loss(self, model: Model, outs: list, p_success, beta):
+        """``(loss, terms)`` of the configuration's objective."""
+        if self.cfg["train"]["objective"] != "iwae":
+            return nvil_loss(outs[0], beta)
+        log_w = torch.stack([log_weight(o, model.m, model.where_prior,
+                                        p_success, beta) for o in outs])
+        log_q = torch.stack([torch.sum(presence_log_prob(o["steps"]), -1)
+                             for o in outs])
+        loss, terms = vimco_loss(log_w, log_q)
+        terms.update({k: torch.mean(torch.stack([o[k] for o in outs]))
+                      .detach() for k in _TERMS})
+        return loss, terms
 
     def step(self):
-        """One step; returns ``(readings, grads)``: the step's
-        ``READINGS`` as floats and the gradient before clipping, by
-        parameter name."""
+        """One step; returns ``(readings, grads)``: the step's readings
+        as floats and the gradient before clipping, by parameter name."""
         cfg, s = self.cfg, self.step_no
         dev = self.bank.device
-        imgs, _, noise = self.batch(s)
+        imgs, _, noises = self.batch(s)
         model = Model(cfg, self.params, self.prec)
-        out = model.forward(imgs, prior_success_prob(cfg["prior"], s).to(dev),
-                            noise)
+        p_success = prior_success_prob(cfg["prior"], s).to(dev)
+        outs = [model.forward(imgs, p_success, noise) for noise in noises]
         beta = kl_beta(cfg["train"], s)
-        loss, terms = nvil_loss(out, beta.to(dev) if torch.is_tensor(beta)
+        loss, terms = self.loss(model, outs, p_success,
+                                beta.to(dev) if torch.is_tensor(beta)
                                 else beta)
         names = list(self.params)
         grads = torch.autograd.grad(loss, [self.params[n] for n in names],
@@ -133,13 +174,13 @@ class Trainer:
         norm = global_norm(grads.values())
         self.update(grads)
         self.step_no += 1
-        readings = dict(terms, loss=loss.detach(), grad_norm=norm)
-        return {k: float(readings[k]) for k in READINGS}, grads
+        got = dict(terms, loss=loss.detach(), grad_norm=norm)
+        return {k: float(got[k]) for k in self.readings}, grads
 
     def follow(self, steps: int) -> dict:
         """``{reading: [...]}`` of the next ``steps`` steps, for each of
-        ``READINGS``."""
-        got = {k: [] for k in READINGS}
+        the configuration's readings."""
+        got = {k: [] for k in self.readings}
         for _ in range(steps):
             readings, _ = self.step()
             for k, v in readings.items():

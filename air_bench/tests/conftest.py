@@ -11,13 +11,6 @@ import torch
 
 from air_bench import layout
 
-#: Traffic parameters that keep a tiny cell's run short.
-TINY_TRAFFIC = {
-    "chunks": {"trace_chunks": 1},
-    "closed_loop": {"batch": 16, "pool_batches": 2, "trace_requests": 2},
-}
-
-
 def tiny_config(cfg: dict) -> dict:
     """``cfg`` at tiny widths and batch, its switches and dtypes kept."""
     cfg = copy.deepcopy(cfg)
@@ -32,16 +25,31 @@ def tiny_config(cfg: dict) -> dict:
     return cfg
 
 
-def tiny_cell(name: str) -> dict:
-    cell = layout.cell(name)
+def iwae_trained(cfg: dict) -> dict:
+    """``cfg`` trained as the ``iwae_trained`` preset trains
+    ``canonical_fast``: the 5-particle bound with VIMCO, no baseline."""
+    cfg = copy.deepcopy(cfg)
+    cfg["name"] = "iwae_trained"
+    cfg["train"].update(objective="iwae", iwae_particles=5,
+                        use_baseline=False, iwae_eval_particles=5)
+    return cfg
+
+
+def tiny_cell(name: str, root=layout.ROOT) -> dict:
+    """The cell at tiny widths, with the tiny settings its traffic kind
+    keeps (``TINY`` of ``traffic/<kind>.py``)."""
+    cell = layout.cell(name, root)
     cell["config_doc"] = dict(cell["config_doc"],
                               config=tiny_config(cell["config_doc"]["config"]))
-    kind = cell["traffic_doc"]["kind"]
-    cell["traffic_doc"] = dict(cell["traffic_doc"], **TINY_TRAFFIC[kind])
+    kind = layout.kind(cell["traffic_doc"]["kind"], root)
+    cell["traffic_doc"] = dict(cell["traffic_doc"],
+                               **getattr(kind, "TINY", {}))
     return cell
 
 
 CELLS = [p.stem for p in sorted((layout.ROOT / "workloads").glob("*.json"))]
+#: Each cell's traffic kind.
+KINDS = {c: layout.cell(c)["traffic_doc"]["kind"] for c in CELLS}
 
 
 @pytest.fixture

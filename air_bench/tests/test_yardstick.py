@@ -9,7 +9,8 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from air_bench import layout, program, serve
-from air_bench.tests.conftest import tiny_config
+from air_bench.reference.train import particles
+from air_bench.tests.conftest import iwae_trained, tiny_config
 from air_bench.yardstick import flops, peaks, st_bytes
 
 HBM = peaks.H100_SXM["hbm_bytes_s"]
@@ -55,19 +56,82 @@ def test_flops_match_hand_counts():
     assert round(3 * (s + f) / 1e6, 2) == 122.76
 
 
-@pytest.mark.parametrize("name", ["canonical_fast", "crowded"])
-def test_flops_match_the_programs_linears(name):
-    """The counted linears are those the program's forward multiplies."""
+#: What the counts gave before they learned the objective, and must still
+#: give for NVIL: ``per_image`` of a train step and of a forward (with the
+#: baseline) and ``st_bytes.train_step``.
+RECORDED = {
+    "canonical_fast": ({"bfloat16": 21184512, "float32": 12526848},
+                       {"bfloat16": 7061504, "float32": 4175616},
+                       {"forward": 93978624, "backward": 76382208}),
+    "crowded": ({"float32": 122760960}, {"float32": 40920320},
+                {"forward": 636272640, "backward": 434503680}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RECORDED))
+def test_elbo_counts_are_the_recorded_integers(name):
     cfg = config(name)
-    model = program.air().AIRModel(program.config(cfg).model,
-                                   use_baseline=True, device="cpu")
+    train, forward, st = RECORDED[name]
+    assert flops.per_image(cfg, True, True) == train
+    assert flops.per_image(cfg, False, True) == forward
+    assert st_bytes.train_step(cfg) == st
+
+
+def test_iwae_counts_k_forwards_and_one_synthesis():
+    """A VIMCO step runs the cell's forward and backward once a particle
+    and synthesizes its batch once; a served forward is one forward."""
+    fast = config("canonical_fast")
+    iwae = iwae_trained(fast)
+    k = iwae["train"]["iwae_particles"]
+    one = flops.per_image(fast, True, False)
+    assert flops.per_image(iwae, True, False) == {d: k * f
+                                                  for d, f in one.items()}
+    assert flops.per_image(iwae, False, False) == flops.per_image(
+        fast, False, False)
+    d, b = fast["data"], fast["train"]["batch_size"]
+    synthesis = st_bytes.gather(b * d["max_digits"], d["digit_size"],
+                                d["canvas_size"])
+    st = st_bytes.train_step(fast)
+    assert st_bytes.train_step(iwae) == {
+        "forward": synthesis + k * (st["forward"] - synthesis),
+        "backward": k * st["backward"]}
+
+
+@pytest.mark.parametrize("name", ["canonical_fast", "crowded",
+                                  "iwae_trained"])
+def test_flops_match_the_programs_linears(name):
+    """The counted linears are those the program's train step multiplies
+    in its objective's forwards: a third of a step's count (the backward
+    is twice the forward).  ``iwae_trained`` is ``canonical_fast`` under
+    VIMCO: five forwards, no baseline."""
+    from attend_infer_repeat_torch.train.step import make_objective_loss_fn
+
+    cfg = iwae_trained(config("canonical_fast")) if name == "iwae_trained" \
+        else config(name)
+    conf = program.config(cfg)
+    baseline = cfg["train"]["use_baseline"]
+    model = program.air().AIRModel(conf.model, use_baseline=baseline,
+                                   device="cpu")
     x = torch.rand((2, *cfg["model"]["img_size"]))
+    loss_fn = make_objective_loss_fn(conf, model, x,
+                                     torch.Generator().manual_seed(0),
+                                     torch.tensor(0.5), 1.0)
     with FlopCounterMode(display=False) as fc, torch.no_grad():
-        model(x, 0.5, generator=torch.Generator().manual_seed(0))
+        loss_fn()
     counts = fc.get_flop_counts()["Global"]
     aten = torch.ops.aten
     linear = sum(counts.get(op, 0) for op in (aten.mm, aten.addmm))
-    assert linear == 2 * sum(flops.per_image(cfg, False, True).values())
+    assert 3 * linear == 2 * sum(flops.per_image(cfg, True,
+                                                 baseline).values())
+    assert linear == 2 * particles(cfg) * sum(
+        flops.per_image(cfg, False, baseline).values())
+
+
+def test_iwae_trained_is_the_preset():
+    """``iwae_trained`` is ``canonical_fast``'s file with the objective
+    changed as ``conftest.iwae_trained`` changes it."""
+    built = program.config(iwae_trained(config("canonical_fast")))
+    assert built == program.air().get_config("iwae_trained")
 
 
 # --- ST bytes -------------------------------------------------------------

@@ -24,11 +24,13 @@ import torch
 
 from air_bench import program
 from air_bench.reference import compare, synth
-from air_bench.reference.train import READINGS, Trainer
+from air_bench.reference.train import Trainer, readings
 from air_bench.run import clocks
 from air_bench.yardstick import trace, weights
 
 FOLLOWED = 3
+#: What keeps a run short at the tiny widths of the CPU tests.
+TINY = {"trace_chunks": 1}
 
 
 def _event(device):
@@ -55,7 +57,7 @@ def run(r) -> None:
     scan = program.air().make_scan_train_step(program.config(cfg),
                                               state.model, bank, k)
     state, rows = scan(state)
-    first = {key: rows[key][:FOLLOWED].tolist() for key in READINGS}
+    first = {key: rows[key][:FOLLOWED].tolist() for key in readings(cfg)}
     pools = program.graph_pools(scan)
     r.setup_done()
 

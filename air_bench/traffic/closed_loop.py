@@ -23,6 +23,8 @@ from air_bench import program, serve
 from air_bench.run import clocks
 from air_bench.yardstick import rng, trace
 
+#: What keeps a run short at the tiny widths of the CPU tests.
+TINY = {"batch": 16, "pool_batches": 2, "trace_requests": 2}
 
 def run(r) -> None:
     p, dev = r.traffic, r.device

@@ -6,13 +6,16 @@ rows it sees per image and the precision the configuration states for it:
 presence MLP and the NVIL baseline; ``decoder_dtype`` (else ``dtype``) for
 the decoder; float32 for the LSTM and the presence logit.  A row costs
 ``2 * in * out``; a train step counts each linear's forward once and its
-backward twice that (remat's recompute is not counted).  The spatial
-transformer's products are not model FLOPs (``st_bytes`` counts its
-work).  The least time of the work runs each product at the peak of its
-precision (``peaks``).
+backward twice that (remat's recompute is not counted), for each forward
+the objective runs: ``iwae_particles`` under ``iwae``, one under ``elbo``.
+The spatial transformer's products are not model FLOPs (``st_bytes``
+counts its work).  The least time of the work runs each product at the
+peak of its precision (``peaks``).
 """
 
 from __future__ import annotations
+
+from air_bench.reference.train import particles
 
 
 def _mlp(name, n_in, hidden, rows, dtype, out=None):
@@ -62,8 +65,8 @@ def linears(cfg: dict, with_baseline: bool) -> list:
 
 def per_image(cfg: dict, train: bool, with_baseline: bool) -> dict:
     """FLOPs per image by stated dtype: a forward, or a train step's
-    forward and backward."""
-    mult = 3 if train else 1
+    forwards and backwards."""
+    mult = 3 * particles(cfg) if train else 1
     by = {}
     for _, a, b, rows, dtype in linears(cfg, with_baseline):
         by[dtype] = by.get(dtype, 0) + mult * 2 * a * b * rows

@@ -13,11 +13,14 @@ The work is that of the configuration's shapes, whatever implements it.
 A train step: one synthesis paste (digit into canvas, ``N = batch *
 max_digits``, forward only), then per object step one gather (canvas to
 glimpse) and one paste (glimpse to canvas) at ``N = batch``, each forward
-and backward.  A served request: per object step one gather and one paste
-at ``N = batch``, forward only.
+and backward, in each forward the objective runs (``iwae_particles``
+under ``iwae``).  A served request: per object step one gather and one
+paste at ``N = batch``, forward only.
 """
 
 from __future__ import annotations
+
+from air_bench.reference.train import particles
 
 
 def gather(n: int, in_shape, out_shape) -> int:
@@ -36,11 +39,12 @@ def train_step(cfg: dict) -> dict:
     m, d = cfg["model"], cfg["data"]
     b, t = cfg["train"]["batch_size"], m["max_steps"]
     canvas, glimpse = m["img_size"], m["glimpse_size"]
+    k = particles(cfg)
     fwd = gather(b * max(d["max_digits"], 1), d["digit_size"],
                  d["canvas_size"])
-    fwd += t * (gather(b, canvas, glimpse) + gather(b, glimpse, canvas))
-    bwd = t * (gather_bwd(b, canvas, glimpse, need_img=False)
-               + gather_bwd(b, glimpse, canvas, need_img=True))
+    fwd += k * t * (gather(b, canvas, glimpse) + gather(b, glimpse, canvas))
+    bwd = k * t * (gather_bwd(b, canvas, glimpse, need_img=False)
+                   + gather_bwd(b, glimpse, canvas, need_img=True))
     return {"forward": fwd, "backward": bwd}
 
 
