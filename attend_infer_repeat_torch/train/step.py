@@ -42,6 +42,7 @@ the step, as GSPMD puts them inside the jitted program.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
@@ -72,6 +73,13 @@ from attend_infer_repeat_torch.utils.profiling import span
 # the entries of a schedule row (``step_schedule``)
 SCHEDULE = ("prior_success_prob", "kl_beta") + tuple(f"lr/{g}"
                                                      for g in GROUPS)
+
+
+#: The objective's Python since the process started: ``steps`` (calls of
+#: a ``make_objective_loss_fn`` loss) and ``forwards`` (the model forwards
+#: they ran).  A graph's warm-ups and capture count like eager steps and a
+#: replay runs no Python, so ``forwards / steps`` is a step's forwards.
+objective_counts: collections.Counter = collections.Counter()
 
 
 def step_seeds(base_seed: int, step: int, *words: int):
@@ -105,6 +113,13 @@ def make_objective_loss_fn(config: Config, model: AIRModel, imgs,
     sequence of ``iwae_particles`` of them for ``"iwae"``; otherwise they
     come from ``generator``.  ``batch_mean`` takes the ``advantage_norm``
     statistic's means (a data-parallel step passes the global batch's).
+
+    Each call of ``loss_fn`` adds to ``objective_counts`` one step and
+    its model forwards (``iwae_particles`` under ``"iwae"``).  Under
+    ``"iwae"`` each particle's forward and log weight is the span
+    ``train.particle`` and the VIMCO loss ``train.vimco``: host ranges,
+    so under a step graph they show only at its capture (inside
+    ``graph.capture``), and on eager runs (the CPU, ``utils.debug_mode``).
     """
     tcfg = config.train
 
@@ -112,15 +127,18 @@ def make_objective_loss_fn(config: Config, model: AIRModel, imgs,
         def loss_fn():
             outs, lws, lqps = [], [], []
             for j in range(tcfg.iwae_particles):
-                out = model(imgs, p_success, generator=generator,
-                            noise=None if noise is None else noise[j])
-                lws.append(log_importance_weights(
-                    out, config.model, p_success, what_weight=kl_beta,
-                    where_prior=model.where_prior()))
-                lqps.append(torch.sum(presence_log_prob(out), dim=-1))
+                with span("train.particle"):
+                    out = model(imgs, p_success, generator=generator,
+                                noise=None if noise is None else noise[j])
+                    lws.append(log_importance_weights(
+                        out, config.model, p_success, what_weight=kl_beta,
+                        where_prior=model.where_prior()))
+                    lqps.append(torch.sum(presence_log_prob(out), dim=-1))
                 outs.append(out)
-            loss, metrics = vimco_surrogate_loss(torch.stack(lws),
-                                                 torch.stack(lqps))
+            objective_counts.update(steps=1, forwards=tcfg.iwae_particles)
+            with span("train.vimco"):
+                loss, metrics = vimco_surrogate_loss(torch.stack(lws),
+                                                     torch.stack(lqps))
             if tcfg.l2_weight:
                 loss = loss + tcfg.l2_weight * _l2_norm_sq(model)
 
@@ -138,6 +156,7 @@ def make_objective_loss_fn(config: Config, model: AIRModel, imgs,
     else:
         def loss_fn():
             outputs = model(imgs, p_success, generator=generator, noise=noise)
+            objective_counts.update(steps=1, forwards=1)
             loss, metrics = surrogate_loss(
                 outputs,
                 l2_params_norm=_l2_norm_sq(model) if tcfg.l2_weight else 0.0,

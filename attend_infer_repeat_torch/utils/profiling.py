@@ -19,7 +19,10 @@ Spans: ``graph.capture`` (a graph's warm-up runs and capture),
 ``graphs.copy_out`` (a ``GraphCache`` call), ``serve.infer`` and
 ``serve.noise`` (an infer request and its noise draw), ``train.steps``,
 ``train.prepare`` and ``train.seed`` (a call of K graphed train steps,
-its inputs and each step's re-seeding).
+its inputs and each step's re-seeding), ``train.particle`` and
+``train.vimco`` (under the ``iwae`` objective, each particle's forward
+and log weight, and the VIMCO loss: the Python of a step, so under a
+step graph only its capture shows them, and eager steps).
 """
 
 from __future__ import annotations

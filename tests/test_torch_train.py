@@ -467,6 +467,38 @@ def test_iwae_objective_step_and_scan(bank):
     assert s2.step == 2 and bool(torch.isfinite(chunk["iwae_bound"]).all())
 
 
+@pytest.mark.parametrize("objective, forwards", [("iwae", 3), ("elbo", 1)])
+def test_objective_spans_and_counts(bank, objective, forwards):
+    """An eager step records a ``train.particle`` span for each particle
+    and one ``train.vimco`` under ``iwae`` (none under ``elbo``), and adds
+    one step and its forwards to ``objective_counts``; a K = 2 chunk adds
+    twice that."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from attend_infer_repeat_torch.train.step import objective_counts
+
+    cfg = tiny_config(objective=objective, iwae_particles=3,
+                      use_baseline=objective == "elbo")
+    state = create_train_state(cfg, device="cpu")
+
+    def gained(run):
+        before = dict(objective_counts)
+        run()
+        return {k: objective_counts[k] - before.get(k, 0)
+                for k in ("steps", "forwards")}
+
+    step = make_train_step(cfg, state.model, digit_bank=bank)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        one = gained(lambda: step(state))
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    iwae = objective == "iwae"
+    assert names.count("air.train.particle") == (forwards if iwae else 0)
+    assert names.count("air.train.vimco") == int(iwae)
+    assert one == {"steps": 1, "forwards": forwards}
+    scan = make_scan_train_step(cfg, state.model, bank, 2)
+    assert gained(lambda: scan(state)) == {k: 2 * v for k, v in one.items()}
+
+
 def test_canonical_fast_preset_runs_as_written_and_warns_remat(bank):
     """The preset sets remat ``save_st``, which the cell honours: building
     the step raises no warning, and the step runs with remat.  (Widths cut

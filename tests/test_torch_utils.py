@@ -134,6 +134,35 @@ def test_graph_counts_launches_by_shape(monkeypatch):
         collections.Counter({key: graphs.WARMUP + 2})
 
 
+def test_step_graph_keeps_forwards_per_step(monkeypatch):
+    """A K-step chunk of the ``iwae`` objective, one step's graph replayed
+    K times: its warm-ups and capture run the step's Python and count, a
+    replay counts nothing, so forwards over steps stays the particles of a
+    step."""
+    import dataclasses
+
+    from attend_infer_repeat_torch.train import (
+        create_train_state,
+        make_scan_train_step,
+    )
+    from attend_infer_repeat_torch.train.step import objective_counts
+
+    monkeypatch.setattr(graphs, "Graph", PythonAtCaptureOnly)
+    monkeypatch.setattr(graphs, "eager", lambda device: False)
+    k, cfg = 3, tiny_config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, objective="iwae", iwae_particles=2, use_baseline=False))
+    state = create_train_state(cfg, seed=0, device="cpu")
+    scan = make_scan_train_step(cfg, state.model, torch.rand((5, 4, 4)), k)
+    before = collections.Counter(objective_counts)
+    state, _ = scan(state)
+    built = objective_counts - before
+    assert built == collections.Counter(steps=graphs.WARMUP + 1,
+                                        forwards=2 * (graphs.WARMUP + 1))
+    state, _ = scan(state)
+    assert objective_counts - before == built
+
+
 # --- host spans -------------------------------------------------------------
 
 def spans(prof) -> list:
