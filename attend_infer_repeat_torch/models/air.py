@@ -58,6 +58,17 @@ class AIROutputs:
     mode_steps: torch.Tensor          # (B,) argmax_k q(n=k | x)
     baseline: Optional[torch.Tensor]  # (B, T) NVIL baseline values or None
 
+    def head(self, rows: int) -> "AIROutputs":
+        """The first ``rows`` examples of every batch-major field."""
+        def cut(t):
+            return None if t is None else t[:rows]
+        steps = AIRStepOutput(**{
+            f.name: cut(getattr(self.steps, f.name))
+            for f in dataclasses.fields(AIRStepOutput)})
+        return AIROutputs(**{
+            f.name: steps if f.name == "steps" else cut(getattr(self, f.name))
+            for f in dataclasses.fields(AIROutputs)})
+
 
 # Injected forward noise: eps_where (T, B, d_where), eps_what (T, B, n_what),
 # u_pres (T, B, 1).
@@ -123,7 +134,12 @@ class AIRModel(nn.Module):
 
     def forward(self, x: torch.Tensor, prior_success_prob,
                 generator: torch.Generator | None = None,
-                noise: Noise | None = None) -> AIROutputs:
+                noise: Noise | None = None,
+                particles: int = 1) -> AIROutputs:
+        """``particles = k`` says that the batch is k equal blocks of rows,
+        the k particles of one wide forward: each bf16 layer then gives
+        each block what a forward of that block alone gives, outputs and
+        weight gradients (``modules.dense``)."""
         cfg = self.cfg
         batch = x.shape[0]
         t_steps = cfg.max_steps
@@ -135,7 +151,7 @@ class AIRModel(nn.Module):
         per_step = []
         for t in range(t_steps):
             carry, out = self.cell(carry, x, self.decoder, eps_where[t],
-                                   eps_what[t], u_pres[t])
+                                   eps_what[t], u_pres[t], particles)
             per_step.append(out)
         steps = AIRStepOutput(**{
             f.name: torch.stack([getattr(o, f.name) for o in per_step], 1)

@@ -100,9 +100,10 @@ class AIRCell(nn.Module):
 
     def forward(self, carry: Carry, img: torch.Tensor,
                 decoder: GlimpseDecoder, eps_where: torch.Tensor,
-                eps_what: torch.Tensor, u_pres: torch.Tensor):
+                eps_what: torch.Tensor, u_pres: torch.Tensor,
+                particles: int = 1):
         cfg = self.cfg
-        args = (carry, img, decoder, eps_where, eps_what, u_pres)
+        args = (carry, img, decoder, eps_where, eps_what, u_pres, particles)
         if not (cfg.remat and torch.is_grad_enabled()):
             return self._step(*args)
         if cfg.remat_policy == "full":
@@ -114,20 +115,22 @@ class AIRCell(nn.Module):
     def _step(self, carry: Carry, img: torch.Tensor,
               decoder: GlimpseDecoder, eps_where: torch.Tensor,
               eps_what: torch.Tensor, u_pres: torch.Tensor,
-              stretch=None):
+              particles: int = 1, stretch=None):
         """One step; ``stretch(fn, *args)`` runs the two stretches between
-        the spatial-transformer calls (``save_st`` checkpoints them)."""
+        the spatial-transformer calls (``save_st`` checkpoints them).
+        ``particles`` (the row blocks of a wide forward, ``modules.dense``)
+        is an argument of each stretch, so that a recompute sees it."""
         canvas, lstm_state, z_what, z_where, z_pres = carry
         cfg = self.cfg
         run = stretch or (lambda fn, *a: fn(*a))
 
         lstm_state, h, where_loc, where_scale, z_where = run(
             self._attend, img, canvas, lstm_state, z_what, z_where, z_pres,
-            eps_where)
+            eps_where, particles)
         glimpse = st_gather(img, st_where(cfg, z_where), cfg.glimpse_size)
         what_loc, what_scale, z_what, p_eff, pres_prev, z_pres, \
             glimpse_out = run(self._infer, glimpse, h, z_where, z_pres,
-                              decoder, eps_what, u_pres)
+                              decoder, eps_what, u_pres, particles)
         # paste, accumulate in f32, store at the carry's dtype: one kernel
         canvas = st_paste_accumulate(canvas, glimpse_out,
                                      st_where(cfg, z_where), z_pres)
@@ -142,7 +145,7 @@ class AIRCell(nn.Module):
         return (canvas, lstm_state, z_what, z_where, z_pres), out
 
     def _attend(self, img, canvas, lstm_state, z_what, z_where, z_pres,
-                eps_where):
+                eps_where, particles):
         """Residual encoding, LSTM and the where posterior's sample."""
         cfg = self.cfg
         # Residual encoding: encode what the canvas does not yet explain.
@@ -151,29 +154,31 @@ class AIRCell(nn.Module):
             enc_in = img - canvas.detach().to(img.dtype)
         else:
             enc_in = img
-        embed = self.encoder(enc_in)
+        embed = self.encoder(enc_in, particles)
 
         lstm_in = torch.cat([embed, z_what, z_where, z_pres], dim=-1)
         lstm_state, h = self.lstm(lstm_state, lstm_in)
 
-        where_loc, where_scale = self.where(h)
+        where_loc, where_scale = self.where(h, particles)
         z_where = expand_where(cfg, where_loc + where_scale * eps_where)
         return lstm_state, h, where_loc, where_scale, z_where
 
-    def _infer(self, glimpse, h, z_where, z_pres, decoder, eps_what, u_pres):
+    def _infer(self, glimpse, h, z_where, z_pres, decoder, eps_what, u_pres,
+               particles):
         """The what posterior, presence, and the decoded glimpse."""
         batch = glimpse.shape[0]
-        what_loc, what_scale = self.what(glimpse.reshape(batch, -1))
+        what_loc, what_scale = self.what(glimpse.reshape(batch, -1),
+                                         particles)
         z_what = what_loc + what_scale * eps_what
 
         # Presence sees where the glimpse landed and what it found.
         steps_in = torch.cat([h, z_where, what_loc, what_scale], dim=-1)
-        p = self.steps(steps_in)                        # (B, 1)
+        p = self.steps(steps_in, particles)             # (B, 1)
         pres_prev = z_pres
         p_eff = p * pres_prev                           # monotone chain
         z_pres = (u_pres < p_eff).to(torch.float32)     # hard 0/1
 
-        glimpse_out = decoder(z_what)                   # (B, gh, gw)
+        glimpse_out = decoder(z_what, particles)        # (B, gh, gw)
         return what_loc, what_scale, z_what, p_eff, pres_prev, z_pres, \
             glimpse_out
 

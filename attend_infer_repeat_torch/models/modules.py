@@ -5,7 +5,9 @@ layer for layer, so that ``convert.params_from_flax`` maps one parameter
 tree onto the other.  The dtype mix is written out with explicit casts:
 a layer run in ``dtype`` casts its input, weight and bias to ``dtype``
 (as flax ``Dense(dtype=...)`` does), and ``MLP`` returns float32.
-Parameters stay float32.
+Parameters stay float32.  A module's ``particles`` says that its batch is
+that many equal blocks of rows, one per particle of a wide forward
+(``dense``).
 
 Initialization follows flax's defaults: truncated lecun-normal weights,
 zero biases, orthogonal recurrent blocks in the LSTM, and ``steps_bias``
@@ -66,10 +68,68 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.constant_(m.logit.bias, m.cfg.steps_bias)
 
 
-def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
-    """``layer(x)`` with input, weight and bias cast to ``dtype``."""
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
+          particles: int = 1):
+    """``layer(x)`` with input, weight and bias cast to ``dtype``.
+
+    ``particles = k > 1`` says that the rows (dim 0) come in k equal
+    blocks, the k particles of one wide forward.  Where the weight is
+    cast, the layer then gives each block what k forwards of one block
+    each give (``_ParticleDense``): the same outputs, and weight and bias
+    gradients rounded to ``dtype`` block by block and summed in float32.
+    """
+    if particles > 1 and layer.weight.dtype != dtype:
+        if x.shape[0] % particles:
+            raise ValueError(f"{x.shape[0]} rows are not {particles} "
+                             "equal blocks")
+        return _ParticleDense.apply(x.to(dtype), layer.weight, layer.bias,
+                                    particles)
     return F.linear(x.to(dtype), layer.weight.to(dtype),
                     layer.bias.to(dtype))
+
+
+class _ParticleDense(torch.autograd.Function):
+    """``F.linear(x, weight.to(x.dtype), bias.to(x.dtype))`` over rows in
+    ``particles`` equal blocks, with each block's bits as a forward and
+    backward of that block alone give them.
+
+    The forward and the weight's gradient run one GEMM a block: over all
+    the rows at once, or as one batched GEMM over the blocks, cuBLAS can
+    take another kernel, which splits the sum otherwise (on the H100: the
+    encoder's 2,500-wide layer at 5,120 rows against 1,024 in the forward;
+    the batched weight GEMM of the encoder and the heads) and so rounds
+    some outputs apart.  In the forward that flips presence samples; in
+    the weight's gradient it moves the first update off the loop's by
+    bf16 ulps, and later steps' presence samples with it.  Each block's
+    weight gradient is rounded to ``x.dtype`` on its own, and the blocks'
+    are summed in float32.  The input's gradient is one GEMM (row for row
+    the blocks' own on the H100), the bias's each block's row sum in
+    ``x.dtype``, summed in float32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, particles):
+        w, b = weight.to(x.dtype), bias.to(x.dtype)
+        ctx.save_for_backward(x, w)
+        ctx.particles = particles
+        return torch.cat([F.linear(rows, w, b)
+                          for rows in x.chunk(particles)])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        k = ctx.particles
+        g_x = g_w = g_b = None
+        if ctx.needs_input_grad[0]:
+            g_x = grad.matmul(w)
+        if ctx.needs_input_grad[1]:
+            per_block = torch.stack([
+                g.reshape(-1, g.shape[-1]).t().mm(r.reshape(-1, r.shape[-1]))
+                for g, r in zip(grad.chunk(k), x.chunk(k))])
+            g_w = torch.sum(per_block, dim=0, dtype=torch.float32)
+        if ctx.needs_input_grad[2]:
+            g_b = torch.sum(torch.sum(grad.reshape(k, -1, grad.shape[-1]),
+                                      dim=1), dim=0, dtype=torch.float32)
+        return g_x, g_w, g_b, None
 
 
 def _width(in_features: int, hidden: Sequence[int]) -> int:
@@ -88,10 +148,10 @@ class MLP(nn.Module):
         self.n_hidden = len(hidden)
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, particles: int = 1):
         x = x.to(self.dtype)
         for i, layer in enumerate(self.dense):
-            x = dense(layer, x, self.dtype)
+            x = dense(layer, x, self.dtype, particles)
             if i < self.n_hidden:
                 x = F.elu(x)
         return x.to(torch.float32)
@@ -130,11 +190,22 @@ class Encoder(nn.Module):
         self.mlp = MLP(n_in, cfg.encoder_hidden, dtype=self.dtype)
         self.out_features = _width(n_in, cfg.encoder_hidden)
 
-    def forward(self, img):
+    def forward(self, img, particles: int = 1):
         batch = img.shape[0]
         if not self.conv:
-            return self.mlp(img.reshape(batch, -1))
-        d = self.dtype
+            return self.mlp(img.reshape(batch, -1), particles)
+        if particles == 1:
+            x = self._stem(img)
+        else:
+            # each particle's rows through the stem apart, so that each
+            # one's weight gradient is rounded to ``dtype`` on its own
+            x = torch.cat([self._stem(rows)
+                           for rows in img.chunk(particles)])
+        return self.mlp(x, particles)
+
+    def _stem(self, img):
+        """The convolutions: images → flat float32 features."""
+        batch, d = img.shape[0], self.dtype
         x = img.reshape(batch, 1, *self.img_size).to(d)
         for conv in self.conv:
             (top, bottom), (left, right) = (same_padding(n)
@@ -143,8 +214,7 @@ class Encoder(nn.Module):
             x = F.elu(F.conv2d(x, conv.weight.to(d), conv.bias.to(d),
                                stride=2))
         # flax flattens (B, h, w, C)
-        x = x.permute(0, 2, 3, 1).reshape(batch, -1).to(torch.float32)
-        return self.mlp(x)
+        return x.permute(0, 2, 3, 1).reshape(batch, -1).to(torch.float32)
 
 
 class GaussianHead(nn.Module):
@@ -161,10 +231,10 @@ class GaussianHead(nn.Module):
             "loc_bias", None if loc_bias is None else torch.tensor(
                 loc_bias, dtype=torch.float32), persistent=False)
 
-    def forward(self, h):
+    def forward(self, h, particles: int = 1):
         d = compute_dtype(self.cfg)
-        loc = dense(self.loc, h, d).to(torch.float32)
-        raw = dense(self.scale, h, d).to(torch.float32)
+        loc = dense(self.loc, h, d, particles).to(torch.float32)
+        raw = dense(self.scale, h, d, particles).to(torch.float32)
         scale = F.softplus(raw + self.cfg.scale_offset) + self.cfg.min_scale
         if self.loc_bias is not None:
             loc = loc + self.loc_bias
@@ -216,8 +286,8 @@ class StochasticTransformParam(nn.Module):
             cfg, _width(cfg.rnn_hidden, cfg.transform_hidden), len(idx),
             loc_bias=tuple(cfg.where_prior_loc[i] for i in idx))
 
-    def forward(self, h):
-        return self.head(self.mlp(h))
+    def forward(self, h, particles: int = 1):
+        return self.head(self.mlp(h, particles), particles)
 
 
 class GlimpseEncoder(nn.Module):
@@ -231,8 +301,8 @@ class GlimpseEncoder(nn.Module):
         self.head = GaussianHead(
             cfg, _width(n_in, cfg.glimpse_encoder_hidden), cfg.n_what)
 
-    def forward(self, glimpse_flat):
-        return self.head(self.mlp(glimpse_flat))
+    def forward(self, glimpse_flat, particles: int = 1):
+        return self.head(self.mlp(glimpse_flat, particles), particles)
 
 
 class GlimpseDecoder(nn.Module):
@@ -245,8 +315,8 @@ class GlimpseDecoder(nn.Module):
         self.mlp = MLP(cfg.n_what, cfg.decoder_hidden, out=gh * gw,
                        dtype=decoder_dtype(cfg))
 
-    def forward(self, z_what):
-        x = self.mlp(z_what)
+    def forward(self, z_what, particles: int = 1):
+        x = self.mlp(z_what, particles)
         return torch.sigmoid(x).reshape(x.shape[:-1] + self.glimpse_size)
 
 
@@ -260,8 +330,8 @@ class StepsPredictor(nn.Module):
                        dtype=compute_dtype(cfg))
         self.logit = nn.Linear(_width(in_features, cfg.steps_hidden), 1)
 
-    def forward(self, h):
-        p = torch.sigmoid(self.logit(self.mlp(h)))     # float32 layer
+    def forward(self, h, particles: int = 1):
+        p = torch.sigmoid(self.logit(self.mlp(h, particles)))  # f32 layer
         eps = self.cfg.explore_eps
         if eps is not None:
             p = eps + (1.0 - 2.0 * eps) * p

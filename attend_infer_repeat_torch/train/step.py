@@ -114,45 +114,52 @@ def make_objective_loss_fn(config: Config, model: AIRModel, imgs,
     come from ``generator``.  ``batch_mean`` takes the ``advantage_norm``
     statistic's means (a data-parallel step passes the global batch's).
 
+    Under ``"iwae"`` the k particles run along the batch: each one's draws
+    are taken in turn from ``generator`` (or injected), joined along the
+    batch axis, and one forward at batch k·B gives particle j the rows
+    j·B … (j+1)·B − 1.  Each bf16 layer gives each particle what k
+    forwards at batch B give (``models.modules.dense``): the same outputs,
+    and weight gradients rounded particle by particle.
+    Particle 0's rows carry the reporting surface; the ELBO decomposition
+    is averaged over particles and batch.
+
     Each call of ``loss_fn`` adds to ``objective_counts`` one step and
-    its model forwards (``iwae_particles`` under ``"iwae"``).  Under
-    ``"iwae"`` each particle's forward and log weight is the span
-    ``train.particle`` and the VIMCO loss ``train.vimco``: host ranges,
-    so under a step graph they show only at its capture (inside
-    ``graph.capture``), and on eager runs (the CPU, ``utils.debug_mode``).
+    one model forward.  Under ``"iwae"`` the draws, the wide forward and
+    its log weights are the span ``train.particles`` and the VIMCO loss
+    ``train.vimco``: host ranges, so under a step graph they show only at
+    its capture (inside ``graph.capture``), and on eager runs (the CPU,
+    ``utils.debug_mode``).
     """
     tcfg = config.train
 
     if tcfg.objective == "iwae":
+        k = tcfg.iwae_particles
+
         def loss_fn():
-            outs, lws, lqps = [], [], []
-            for j in range(tcfg.iwae_particles):
-                with span("train.particle"):
-                    out = model(imgs, p_success, generator=generator,
-                                noise=None if noise is None else noise[j])
-                    lws.append(log_importance_weights(
-                        out, config.model, p_success, what_weight=kl_beta,
-                        where_prior=model.where_prior()))
-                    lqps.append(torch.sum(presence_log_prob(out), dim=-1))
-                outs.append(out)
-            objective_counts.update(steps=1, forwards=tcfg.iwae_particles)
+            batch = imgs.shape[0]
+            with span("train.particles"):
+                draws = noise if noise is not None else [
+                    model.sample_noise(batch, generator) for _ in range(k)]
+                out = model(imgs.repeat(k, 1, 1), p_success,
+                            noise=tuple(torch.cat(parts, dim=1)
+                                        for parts in zip(*draws)),
+                            particles=k)
+                lws = log_importance_weights(
+                    out, config.model, p_success, what_weight=kl_beta,
+                    where_prior=model.where_prior()).reshape(k, batch)
+                lqps = torch.sum(presence_log_prob(out),
+                                 dim=-1).reshape(k, batch)
+            objective_counts.update(steps=1, forwards=1)
             with span("train.vimco"):
-                loss, metrics = vimco_surrogate_loss(torch.stack(lws),
-                                                     torch.stack(lqps))
+                loss, metrics = vimco_surrogate_loss(lws, lqps)
             if tcfg.l2_weight:
                 loss = loss + tcfg.l2_weight * _l2_norm_sq(model)
-
-            def mean(field):
-                return torch.mean(torch.stack(
-                    [getattr(o, field) for o in outs]))
-            # particle 0 carries the reporting surface; the ELBO
-            # decomposition is averaged over particles
             metrics.update(
-                {f: mean(f) for f in ("elbo", "log_likelihood", "kl_what",
-                                      "kl_where", "kl_steps",
-                                      "expected_steps", "predicted_steps")},
+                {f: torch.mean(getattr(out, f).reshape(k, batch))
+                 for f in ("elbo", "log_likelihood", "kl_what", "kl_where",
+                           "kl_steps", "expected_steps", "predicted_steps")},
                 baseline_mse=torch.zeros((), device=imgs.device))
-            return loss, (metrics, outs[0])
+            return loss, (metrics, out.head(batch))
     else:
         def loss_fn():
             outputs = model(imgs, p_success, generator=generator, noise=noise)

@@ -2523,11 +2523,12 @@ def analysis_phase(air, st_kernel, smi, bw, f32_peak):
 # its own batch, widths, canvas and dtype mix, K steps a chunk.
 PRESET_K = 4
 # Launches per train step (forward, backward), as the code gives them: one
-# synthesis paste, then a gather and a paste per cell step, for each
-# particle of the VIMCO objective; remat save_st recomputes no kernel (no
-# preset uses remat "full", which would run each gather and paste again).
-# tests/test_torch_train.py holds the CPU step's kernel calls to the same.
-PRESET_LAUNCHES = {"crowded": (11, 10), "iwae_trained": (31, 30),
+# synthesis paste, then a gather and a paste per cell step (the VIMCO
+# objective's particles ride the batch of one forward); remat save_st
+# recomputes no kernel (no preset uses remat "full", which would run each
+# gather and paste again).  tests/test_torch_train.py holds the CPU step's
+# kernel calls to the same.
+PRESET_LAUNCHES = {"crowded": (11, 10), "iwae_trained": (7, 6),
                    "iwae": (7, 6), "canonical_uniform": (7, 6),
                    "canonical_uniform28": (7, 6), "single_digit": (3, 2),
                    "canonical": (7, 6), "no_nvil": (7, 6)}

@@ -121,8 +121,9 @@ def test_graph_chunks_equal_eager_steps(cuda, bank, case):
         graphed, m = scan(graphed)
         chunks.append(m)
     torch.cuda.synchronize()
-    per_step = 1 + 2 * cfg.model.max_steps * (
-        cfg.train.iwae_particles if cfg.train.objective == "iwae" else 1)
+    # a synthesis, then a gather and a paste per cell step (under iwae
+    # the particles ride the batch of one forward)
+    per_step = 1 + 2 * cfg.model.max_steps
     # 3 warm-up steps run eagerly, then 2·K replays
     assert st_kernel.launches == (3 + 2 * K) * per_step
     eager, eager_ms = eager_chunks(cfg, eager, bank, 2)

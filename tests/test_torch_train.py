@@ -40,6 +40,7 @@ from attend_infer_repeat_tpu import configs as jcfg
 from attend_infer_repeat_tpu.models.air import AIRModel as JaxAIR
 from attend_infer_repeat_tpu.train import state as jstate_mod
 from attend_infer_repeat_tpu.train import step as jstep_mod
+from helpers.torch_particle_loop import looped_iwae_loss
 from torch_parity import (
     FAST,
     TINY,
@@ -467,17 +468,181 @@ def test_iwae_objective_step_and_scan(bank):
     assert s2.step == 2 and bool(torch.isfinite(chunk["iwae_bound"]).all())
 
 
-@pytest.mark.parametrize("objective, forwards", [("iwae", 3), ("elbo", 1)])
-def test_objective_spans_and_counts(bank, objective, forwards):
-    """An eager step records a ``train.particle`` span for each particle
-    and one ``train.vimco`` under ``iwae`` (none under ``elbo``), and adds
-    one step and its forwards to ``objective_counts``; a K = 2 chunk adds
-    twice that."""
+# -- VIMCO's particles along the batch ---------------------------------------
+
+def bf16_iwae(remat=None, **model):
+    """The tiny model with ``canonical_fast``'s bf16 mix under VIMCO, k = 3,
+    at batch 64.  The CPU's GEMMs and elementwise kernels treat rows in a
+    tail shorter than their row block or vector apart, an ulp off at
+    times (at batch 8–48 particle 0's outputs differed so, the readings
+    did not); at 64 each particle's rows fill whole blocks, alone and side
+    by side."""
+    cfg = tiny_config(objective="iwae", iwae_particles=3, use_baseline=False)
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=64), model=dataclasses.replace(
+        cfg.model, **FAST, remat=remat is not None,
+        remat_policy=remat or "full", **model))
+
+
+def wide_and_looped(cfg, seed=5):
+    """``(wide, looped)``: each ``(loss, metrics, outputs, grads)`` of the
+    same model, images and generator seed."""
+    from attend_infer_repeat_torch.models.air import AIRModel
+
+    model = AIRModel(cfg.model, use_baseline=False, device="cpu", seed=seed)
+    imgs = torch.from_numpy(images(cfg.train.batch_size,
+                                   cfg.model.img_size, seed))
+    p_success, kl_beta = torch.tensor(0.3), 0.7
+    params = list(model.parameters())
+    loss, (metrics, out) = make_objective_loss_fn(
+        cfg, model, imgs, torch.Generator().manual_seed(seed), p_success,
+        kl_beta)()
+    wide = (loss, metrics, out, torch.autograd.grad(loss, params))
+    loss, metrics, out = looped_iwae_loss(
+        cfg, model, imgs, torch.Generator().manual_seed(seed), p_success,
+        kl_beta)
+    return wide, (loss, metrics, out, torch.autograd.grad(loss, params))
+
+
+def grad_gap(a, b):
+    """The largest ``‖a − b‖ / ‖b‖`` over the parameters."""
+    return max(((x - y).norm() / y.norm().clamp(min=1e-30)).item()
+               for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("remat, model", [
+    (None, {}), ("save_st", {}), ("full", {}),
+    ("save_st", dict(encoder_conv=(4,)))],
+    ids=["no_remat", "save_st", "full", "conv_stem"])
+def test_wide_iwae_matches_the_particle_loop(remat, model):
+    """The ``iwae`` loss as one forward at k·B, bf16 matmuls, against k
+    forwards at B on the same draws: the forward's readings and particle
+    0's outputs are bit-equal, and every parameter's gradient agrees to
+    f32 roundoff (each particle's bf16 weight gradient is rounded on its
+    own, as the loop rounds it; the sums over particles and uses are
+    f32, in another order).  Remat's recompute sees the particles too."""
+    cfg = bf16_iwae(remat, **model)
+    (w_loss, w_metrics, w_out, w_grads), (l_loss, l_metrics, l_out,
+                                          l_grads) = wide_and_looped(cfg)
+    assert torch.equal(w_loss, l_loss)
+    assert set(w_metrics) == set(l_metrics) | {"baseline_mse"}
+    for key, want in l_metrics.items():
+        assert torch.equal(w_metrics[key], want), key
+    assert_bit_equal(w_out, l_out)
+    assert grad_gap(w_grads, l_grads) <= 1e-6
+
+
+def test_single_rounding_of_the_wide_weight_gradient_shows(monkeypatch):
+    """With ``dense`` rounding the k·B rows' weight gradient once (one GEMM
+    over every particle), the gradients leave the loop's by far more than
+    the wide step's f32 roundoff: the parity test above sees the bf16
+    rounding."""
+    from attend_infer_repeat_torch.models import modules
+
+    plain = modules.dense
+    monkeypatch.setattr(modules, "dense", lambda layer, x, dtype,
+                        particles=1: plain(layer, x, dtype))
+    (w_loss, _, _, w_grads), (l_loss, _, _, l_grads) = wide_and_looped(
+        bf16_iwae("save_st"))
+    assert torch.equal(w_loss, l_loss)
+    assert grad_gap(w_grads, l_grads) > 1e-4
+
+
+def test_wide_iwae_draws_each_particle_in_turn(monkeypatch):
+    """The wide forward's noise is the k particles' draws taken in turn
+    from the step's generator, as the loop draws them, joined along the
+    batch axis; injected noise (one ``Noise`` per particle) is joined the
+    same way."""
+    from attend_infer_repeat_torch.models.air import AIRModel
+
+    cfg = bf16_iwae()
+    model = AIRModel(cfg.model, use_baseline=False, device="cpu", seed=0)
+    imgs = torch.from_numpy(images(cfg.train.batch_size, cfg.model.img_size))
+    seen = []
+    forward = AIRModel.forward
+
+    def spy(self, x, p, generator=None, noise=None, particles=1):
+        seen.append((x, noise, particles))
+        return forward(self, x, p, generator, noise, particles)
+    monkeypatch.setattr(AIRModel, "forward", spy)
+    make_objective_loss_fn(cfg, model, imgs, torch.Generator().manual_seed(9),
+                           0.5, 1.0)()
+    g = torch.Generator().manual_seed(9)
+    draws = [model.sample_noise(cfg.train.batch_size, g) for _ in range(3)]
+    (x, noise, particles), = seen
+    assert particles == 3 and torch.equal(x, imgs.repeat(3, 1, 1))
+    for got, parts in zip(noise, zip(*draws)):
+        assert torch.equal(got, torch.cat(parts, dim=1))
+    seen.clear()
+    make_objective_loss_fn(cfg, model, imgs, None, 0.5, 1.0, noise=draws)()
+    for got, parts in zip(seen[0][1], zip(*draws)):
+        assert torch.equal(got, torch.cat(parts, dim=1))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dense_default_path_is_the_plain_linear(dtype):
+    """``dense`` with one particle, or with layers already in ``dtype``, is
+    ``F.linear`` on the cast input, weight and bias: the same values and
+    gradients, and the particle Function never runs."""
+    import torch.nn.functional as F
+
+    from attend_infer_repeat_torch.models import modules
+
+    layer = torch.nn.Linear(6, 5)
+    x = torch.randn(8, 6, generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    want = F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    want_grads = torch.autograd.grad(want.float().sum(),
+                                     [x, *layer.parameters()])
+    cases = [1] if dtype == torch.bfloat16 else [1, 2]
+    for particles in cases:
+        got = modules.dense(layer, x, dtype, particles)
+        assert torch.equal(got, want)
+        assert "ParticleDense" not in type(got.grad_fn).__name__
+        grads = torch.autograd.grad(got.float().sum(),
+                                    [x, *layer.parameters()])
+        assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
+    with pytest.raises(ValueError, match="equal blocks"):
+        modules.dense(layer, x, torch.bfloat16, 3)
+
+
+@pytest.mark.parametrize("objective", ["elbo", "iwae"])
+def test_only_the_particles_enter_the_particle_dense(bank, monkeypatch,
+                                                     objective):
+    """A bf16 ``elbo`` step never enters ``_ParticleDense``; an ``iwae``
+    step does, for every bf16 layer use."""
+    from attend_infer_repeat_torch.models import modules
+
+    calls = []
+    apply = modules._ParticleDense.apply
+
+    def spy(*args):
+        calls.append(args[-1])
+        return apply(*args)
+    monkeypatch.setattr(modules._ParticleDense, "apply", spy)
+    cfg = bf16_iwae("save_st")
+    if objective == "elbo":
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, objective="elbo", use_baseline=True))
+    state = create_train_state(cfg, device="cpu")
+    make_train_step(cfg, state.model, digit_bank=bank)(state)
+    if objective == "elbo":
+        assert calls == []
+    else:
+        assert calls and set(calls) == {3}
+
+
+@pytest.mark.parametrize("objective, particles", [("iwae", 3), ("elbo", 1)])
+def test_objective_spans_and_counts(bank, objective, particles):
+    """An eager step records one ``train.particles`` span (the particles'
+    wide forward) and one ``train.vimco`` under ``iwae`` (none under
+    ``elbo``), and adds one step and its one forward to
+    ``objective_counts``; a K = 2 chunk adds twice that."""
     from torch.profiler import ProfilerActivity, profile
 
     from attend_infer_repeat_torch.train.step import objective_counts
 
-    cfg = tiny_config(objective=objective, iwae_particles=3,
+    cfg = tiny_config(objective=objective, iwae_particles=particles,
                       use_baseline=objective == "elbo")
     state = create_train_state(cfg, device="cpu")
 
@@ -492,9 +657,10 @@ def test_objective_spans_and_counts(bank, objective, forwards):
         one = gained(lambda: step(state))
     names = [e.name() for e in prof.profiler.kineto_results.events()]
     iwae = objective == "iwae"
-    assert names.count("air.train.particle") == (forwards if iwae else 0)
+    assert names.count("air.train.particles") == int(iwae)
+    assert names.count("air.train.particle") == 0
     assert names.count("air.train.vimco") == int(iwae)
-    assert one == {"steps": 1, "forwards": forwards}
+    assert one == {"steps": 1, "forwards": 1}
     scan = make_scan_train_step(cfg, state.model, bank, 2)
     assert gained(lambda: scan(state)) == {k: 2 * v for k, v in one.items()}
 
@@ -692,10 +858,11 @@ def test_scan_train_step_keeps_its_graph(setup, bank, uncaptured):
 # -- launches per step of every training preset -----------------------------
 
 # Kernel calls a train step makes (forward, backward): one synthesis
-# paste, then a gather and a paste per cell step, for each particle of
-# the VIMCO objective; remat save_st recomputes no kernel.  chip_smoke.py
-# phase 8 holds the kernels' launches on the card to the same counts.
-PRESET_LAUNCHES = {"crowded": (11, 10), "iwae_trained": (31, 30),
+# paste, then a gather and a paste per cell step (the VIMCO objective's
+# particles ride the batch of one forward); remat save_st recomputes no
+# kernel.  chip_smoke.py phase 8 holds the kernels' launches on the card
+# to the same counts.
+PRESET_LAUNCHES = {"crowded": (11, 10), "iwae_trained": (7, 6),
                    "iwae": (7, 6), "canonical_uniform": (7, 6),
                    "canonical_uniform28": (7, 6), "single_digit": (3, 2),
                    "canonical": (7, 6), "no_nvil": (7, 6)}

@@ -137,8 +137,8 @@ def test_graph_counts_launches_by_shape(monkeypatch):
 def test_step_graph_keeps_forwards_per_step(monkeypatch):
     """A K-step chunk of the ``iwae`` objective, one step's graph replayed
     K times: its warm-ups and capture run the step's Python and count, a
-    replay counts nothing, so forwards over steps stays the particles of a
-    step."""
+    replay counts nothing, so forwards over steps stays a step's one wide
+    forward of its particles."""
     import dataclasses
 
     from attend_infer_repeat_torch.train import (
@@ -158,7 +158,7 @@ def test_step_graph_keeps_forwards_per_step(monkeypatch):
     state, _ = scan(state)
     built = objective_counts - before
     assert built == collections.Counter(steps=graphs.WARMUP + 1,
-                                        forwards=2 * (graphs.WARMUP + 1))
+                                        forwards=graphs.WARMUP + 1)
     state, _ = scan(state)
     assert objective_counts - before == built
 
