@@ -14,6 +14,10 @@ Per canvas:
      candidate (soft rejection: overlap happens).
   4. Slots are pasted with the model's ``st_paste`` (on the card, the
      gather kernel), summed under the slot mask and clipped to [0, 1].
+
+``make_synth_fn`` takes the draws first and synthesizes from them through
+a ``utils.graphs.GraphCache``: one CUDA graph per batch on the card,
+eager where ``utils.graphs.eager`` holds.
 """
 
 from __future__ import annotations
@@ -170,13 +174,8 @@ def _uniform_positions(candidates, sx, sy, cfg: DataConfig):
 
 
 def make_synth_fn(cfg: DataConfig, digit_bank, device=None):
-    """``(batch, generator=None) → (imgs, nums)``, the bank on ``device``.
-
-    On CUDA one graph per batch synthesizes from the draws
-    (``sample_draws``) taken from ``generator`` before the replay, as the
-    eager call takes them; eager on the CPU and inside
-    ``utils.debug_mode``.
-    """
+    """``(batch, generator=None) → (imgs, nums)``, the bank on ``device``,
+    from draws (``sample_draws``) taken from ``generator``."""
     bank = torch.as_tensor(digit_bank, dtype=torch.float32).to(
         resolve_device(device))
     cache = graphs.GraphCache(lambda bank, draws: synthesize_batch(
@@ -184,8 +183,6 @@ def make_synth_fn(cfg: DataConfig, digit_bank, device=None):
 
     @torch.inference_mode()
     def synth(batch: int, generator: Optional[torch.Generator] = None):
-        if graphs.eager(bank.device):
-            return synthesize_batch(bank, cfg, batch, generator)
         return cache(bank, sample_draws(cfg, batch, bank.shape[0], generator,
                                         bank.device))
 

@@ -4,7 +4,10 @@
 over the true log importance weights ``log p(x, z_k) − log q(z_k | x)``
 at each particle's sampled latents (``estimator.log_importance_weights``).
 The particles run along the batch axis: one forward at batch ``k·B``
-(the JAX package ``vmap``s the forward over ``k`` keys).
+(the JAX package ``vmap``s the forward over ``k`` keys).  Its draws are
+taken first; the forward runs through a ``utils.graphs.GraphCache``: one
+CUDA graph per batch shape on the card, eager where
+``utils.graphs.eager`` holds.
 """
 
 from __future__ import annotations
@@ -31,19 +34,14 @@ def make_iwae_eval_step(config: Config, model, n_particles: int = 5
     ELBO mean (the training metric), the k-particle IWAE bound and
     ``iwae_gap``, their difference.  ``noise`` injects one ``Noise`` per
     particle; otherwise the k·B draws come from ``generator``.
-
-    On CUDA the wide forward is a CUDA graph, one per batch shape, with
-    the draws taken from ``generator`` before the replay (as the eager
-    forward takes them) and the prior's success probability a device
-    input; eager on the CPU and inside ``utils.debug_mode``.
     """
     k = n_particles
 
-    def bound(params, imgs, p_success, generator=None, noise=None):
+    def bound(params, imgs, p_success, noise):
         batch = imgs.shape[0]
         out = torch.func.functional_call(
             model, params, (imgs.repeat(k, 1, 1), p_success),
-            {"generator": generator, "noise": noise})
+            {"noise": noise})
         log_w = log_importance_weights(
             out, config.model, p_success,
             where_prior=model.where_prior()).reshape(k, batch)
@@ -64,16 +62,12 @@ def make_iwae_eval_step(config: Config, model, n_particles: int = 5
         p_success = prior_success_prob(config.prior, state.step)
         params = dict(state.model.named_parameters())
         imgs = torch.as_tensor(imgs)
-        if noise is not None:
+        if noise is None:
+            noise = model.sample_noise(k * imgs.shape[0], generator)
+        else:
             # particle j is rows j·B .. (j+1)·B − 1 of the wide batch
             noise = tuple(torch.cat(parts, dim=1) for parts in zip(*noise))
-        if graphs.eager(model.device):
-            out = bound(params, imgs.to(model.device), p_success, generator,
-                        noise)
-        else:
-            if noise is None:
-                noise = model.sample_noise(k * imgs.shape[0], generator)
-            out = cache(params, imgs, p_success, None, noise)
+        out = cache(params, imgs, p_success, noise)
         return dict(out, n_particles=torch.tensor(float(k)))
 
     eval_fn.graphs = cache

@@ -9,8 +9,8 @@ equals the single-device step); ``make_shardmap_train_step`` is the
 explicit form, each rank on its own shard; ``make_infer_fn(..., mesh=)``
 and ``make_generate_fn(..., mesh=)`` split a request and gather it.  On
 CUDA each is a CUDA graph that holds its collectives, as ``jit`` over a
-``Mesh`` holds GSPMD's (``utils.graphs``); eager on the CPU and inside
-``utils.debug_mode``.
+``Mesh`` holds GSPMD's (``utils.graphs``, which also says where they
+run eagerly).
 """
 
 _EXPORTS = {

@@ -108,11 +108,11 @@ def make_shardmap_train_step(config: Config, model, digit_bank, mesh,
     single-device step takes the global batch's): the same estimator, a
     slightly different step size per rank.  Both objectives are supported.
 
-    On CUDA the step is a CUDA graph, as ``make_train_step``'s: the
-    per-rank step draws from generators registered with it and re-seeded
-    with the rank before each replay; the external batch and noise are
-    copied into its static buffers.  Eager on the CPU and inside
-    ``utils.debug_mode``.  ``step.graphs`` holds the graphs once captured.
+    The step runs through ``make_train_step``'s ``StepGraph``: the
+    per-rank step draws from generators registered with its graph and
+    re-seeded with the rank before each step; the external batch and
+    noise are copied into its static buffers.  ``step.graphs`` holds the
+    ``StepGraph``s.
     """
     dp = DataParallel(mesh, global_batch=False,
                       per_rank_seeds=not external_batch)

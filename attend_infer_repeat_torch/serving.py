@@ -2,15 +2,13 @@
 
 The functions returned here run under ``torch.inference_mode()`` on the
 model's device and return the same keys and batch-major shapes as the
-JAX package's serving functions.  On CUDA each is a CUDA graph
-(``utils.graphs``), the counterpart of the JAX package's jitted
-function: captured at the first call of each batch (or tile) shape and
-replayed a call, with the noise drawn from the caller's generator before
-the replay, as the eager call draws it, so the results, and the
-generator's state after the call, equal the eager call's.  They run
-eagerly on the CPU and inside ``utils.debug_mode``.  With a ``mesh``
-(``parallel.make_mesh``) the noise is drawn for the whole batch as one
-device would draw it; each rank runs its rows of the batch and
+JAX package's serving functions.  Each draws its noise from the caller's
+generator, then runs its forward through a ``utils.graphs.GraphCache``,
+the counterpart of the JAX package's jitted function: on CUDA a CUDA
+graph captured at the first call of each batch (or tile) shape and
+replayed a call, eager where ``utils.graphs.eager`` holds.  With a
+``mesh`` (``parallel.make_mesh``) the noise is drawn for the whole batch
+as one device would draw it; each rank runs its rows of the batch and
 all-gathers the outputs, so every rank gets the whole result, equal to
 the single-device call.  On CUDA that, the all-gather too, is one CUDA
 graph per batch shape, which every rank must call alike
@@ -52,19 +50,23 @@ def make_infer_fn(config: Config, model: AIRModel,
     ``tile`` runs a wider batch in chunks of ``tile`` (which must divide
     it), each with its own generator stream; injected ``noise`` (the
     forward's ``(T, B, ...)`` tensors for the whole batch) is sliced along
-    the batch instead.  ``None`` runs the batch in one pass.  On CUDA a
-    tiled batch replays one graph of the tile's shape once per chunk, as
+    the batch instead.  ``None`` runs the batch in one pass.  A tiled
+    batch replays one graph of the tile's shape once per chunk, as
     ``lax.scan`` runs one program per chunk, so that memory stays at one
     tile's.  With a ``mesh`` each rank runs its rows in one pass (a
     ``tile`` only sets how the noise is drawn).
     """
-    p_success = config.prior.final_success_prob
-    p_device = torch.tensor(p_success, dtype=torch.float32,
-                            device=model.device)
+    p_success = torch.tensor(config.prior.final_success_prob,
+                             dtype=torch.float32, device=model.device)
 
-    def _one(imgs, generator, noise, p=p_success):
-        out = model(imgs, p, generator=generator, noise=noise)
-        return {
+    def forward(imgs, noise, p):
+        """The batch's outputs from its noise: this rank's rows, gathered,
+        with a mesh."""
+        if mesh is not None:
+            imgs = constrain_batch(imgs, mesh)
+            noise = tuple(constrain_batch(a, mesh, dim=1) for a in noise)
+        out = model(imgs, p, noise=noise)
+        out = {
             "canvas": out.canvas,
             "elbo": out.elbo,
             "z_where": out.steps.z_where,
@@ -78,14 +80,8 @@ def make_infer_fn(config: Config, model: AIRModel,
             "predicted_steps": out.predicted_steps,
             "mode_steps": out.mode_steps,
         }
-
-    def forward(imgs, noise, p):
-        """The batch's outputs from its noise: this rank's rows, gathered,
-        with a mesh."""
         if mesh is None:
-            return _one(imgs, None, noise, p)
-        out = _one(constrain_batch(imgs, mesh), None,
-                   tuple(constrain_batch(a, mesh, dim=1) for a in noise), p)
+            return out
         return {k: gather_batch(v, mesh) for k, v in out.items()}
 
     cache = graphs.GraphCache(lambda held, *inputs: forward(*inputs))
@@ -110,23 +106,16 @@ def make_infer_fn(config: Config, model: AIRModel,
         tiled = tile is not None and batch > tile
         if tiled and batch % tile:
             raise ValueError(f"batch {batch} not divisible by tile {tile}")
-        eager = graphs.eager(model.device)
-        if eager and mesh is None and not tiled:
-            return _one(imgs.to(model.device), generator, noise)
         if noise is None:
             noise = draw(batch, generator)
         if mesh is not None or not tiled:
-            if eager:
-                return forward(imgs.to(model.device), tuple(noise),
-                               p_success)
-            return cache(model, imgs, tuple(noise), p_device)
+            return cache(model, imgs, tuple(noise), p_success)
         imgs = imgs.to(model.device)
         outs = {}
         for c in range(batch // tile):
             sl = slice(c * tile, (c + 1) * tile)
-            chunk = imgs[sl], tuple(a[:, sl] for a in noise)
-            out = (_one(chunk[0], None, chunk[1]) if eager
-                   else cache.replay(model, *chunk, p_device))
+            out = cache.replay(model, imgs[sl],
+                               tuple(a[:, sl] for a in noise), p_success)
             for k, v in out.items():
                 if k not in outs:
                     outs[k] = v.new_empty((batch,) + tuple(v.shape[1:]))
@@ -146,10 +135,10 @@ def make_generate_fn(config: Config, model: AIRModel,
     from.  The default (``None`` → 1.0, uniform over 0..max_steps) matches
     the data's uniform count distribution; the trained model's annealed
     prior (``config.prior.final_success_prob``) puts almost all mass on
-    empty scenes, so callers opt into it explicitly.  On CUDA one graph
-    per batch renders the scenes from noise drawn before the replay.  With
-    a ``mesh`` each rank draws the whole batch's noise, renders its rows
-    and all-gathers the scenes (in the graph on CUDA).
+    empty scenes, so callers opt into it explicitly.  One graph per batch
+    renders the scenes from the noise drawn first.  With a ``mesh`` each
+    rank draws the whole batch's noise, renders its rows and all-gathers
+    the scenes (in the graph on CUDA).
     """
     p_success = 1.0 if success_prob is None else success_prob
 
@@ -165,14 +154,8 @@ def make_generate_fn(config: Config, model: AIRModel,
     @torch.inference_mode()
     def generate(batch: int, generator: torch.Generator | None = None,
                  noise=None) -> torch.Tensor:
-        eager = graphs.eager(model.device)
-        if eager and mesh is None:
-            return model.generate(batch, p_success, generator=generator,
-                                  noise=noise)
         if noise is None:
             noise = model.generate_noise(batch, p_success, generator)
-        if eager:
-            return render(tuple(noise))
         return cache(model, tuple(noise))
 
     generate.graphs = cache

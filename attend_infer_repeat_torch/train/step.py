@@ -25,12 +25,15 @@ both generators live on the model's device.  A step is thus a function of
 ``(state, step)`` alone, as ``fold_in(base_key, step)`` makes it in JAX.
 ``cfg.remat`` is the cell's business (``models/cell.py``).
 
-On CUDA both are CUDA graphs (``utils.graphs``), the counterparts of the
-JAX package's jitted programs: ``make_train_step`` replays one captured
-step a call (one graph per data source: on-device data, a caller's
-batch, injected noise), ``make_scan_train_step`` (``jit(lax.scan)``) one
-captured step K times a call.  ``make_eval_step`` replays one captured
-forward a call, with the annealed prior a device input.
+Both run through ``StepGraph``, the counterpart of the JAX package's
+jitted programs: ``make_train_step`` one step a call (one ``StepGraph``
+per data source: on-device data, a caller's batch, injected noise),
+``make_scan_train_step`` (``jit(lax.scan)``) K steps a call.  On CUDA a
+``StepGraph`` captures its step as a CUDA graph at its first call and
+replays it; where ``utils.graphs.eager`` holds (the CPU,
+``utils.debug_mode``) it runs the same step eagerly, with the same
+schedule rows and seeds.  ``make_eval_step`` runs one forward a call
+through a ``utils.graphs.GraphCache``, with the annealed prior an input.
 
 With a ``mesh`` (``parallel.make_mesh``) both keep the GSPMD meaning of
 the JAX package: the result equals the single-device step.  Every rank
@@ -44,7 +47,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -124,11 +127,7 @@ def make_objective_loss_fn(config: Config, model: AIRModel, imgs,
     is averaged over particles and batch.
 
     Each call of ``loss_fn`` adds to ``objective_counts`` one step and
-    one model forward.  Under ``"iwae"`` the draws, the wide forward and
-    its log weights are the span ``train.particles`` and the VIMCO loss
-    ``train.vimco``: host ranges, so under a step graph they show only at
-    its capture (inside ``graph.capture``), and on eager runs (the CPU,
-    ``utils.debug_mode``).
+    one model forward.
     """
     tcfg = config.train
 
@@ -137,21 +136,19 @@ def make_objective_loss_fn(config: Config, model: AIRModel, imgs,
 
         def loss_fn():
             batch = imgs.shape[0]
-            with span("train.particles"):
-                draws = noise if noise is not None else [
-                    model.sample_noise(batch, generator) for _ in range(k)]
-                out = model(imgs.repeat(k, 1, 1), p_success,
-                            noise=tuple(torch.cat(parts, dim=1)
-                                        for parts in zip(*draws)),
-                            particles=k)
-                lws = log_importance_weights(
-                    out, config.model, p_success, what_weight=kl_beta,
-                    where_prior=model.where_prior()).reshape(k, batch)
-                lqps = torch.sum(presence_log_prob(out),
-                                 dim=-1).reshape(k, batch)
+            draws = noise if noise is not None else [
+                model.sample_noise(batch, generator) for _ in range(k)]
+            out = model(imgs.repeat(k, 1, 1), p_success,
+                        noise=tuple(torch.cat(parts, dim=1)
+                                    for parts in zip(*draws)),
+                        particles=k)
+            lws = log_importance_weights(
+                out, config.model, p_success, what_weight=kl_beta,
+                where_prior=model.where_prior()).reshape(k, batch)
+            lqps = torch.sum(presence_log_prob(out),
+                             dim=-1).reshape(k, batch)
             objective_counts.update(steps=1, forwards=1)
-            with span("train.vimco"):
-                loss, metrics = vimco_surrogate_loss(lws, lqps)
+            loss, metrics = vimco_surrogate_loss(lws, lqps)
             if tcfg.l2_weight:
                 loss = loss + tcfg.l2_weight * _l2_norm_sq(model)
             metrics.update(
@@ -328,16 +325,6 @@ class _TrainStep:
         metrics["prior_success_prob"] = p_success
         return metrics
 
-    def eager(self, state: TrainState, batch=None, noise=None
-              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One step, run eagerly; advances ``state``."""
-        self.check(state)
-        self.seed(state)
-        metrics = self.run(to_device(self.schedule(state), self.device),
-                           state.opt_state, batch, noise)
-        self.advance(state, 1)
-        return state, metrics
-
 
 def _global_batch(mesh):
     """GSPMD's split over ``mesh`` (None without one)."""
@@ -366,17 +353,14 @@ def make_train_step(config: Config, model: AIRModel, digit_bank=None,
     loss, the surrogate's metrics, count accuracies, ``grad_norm`` (before
     clipping) and ``prior_success_prob``.
 
-    On CUDA the step is captured as a CUDA graph at its first call (one
-    graph per data source: on-device data, a ``batch``, injected
-    ``noise``, each of one shape; ``StepGraph`` with K = 1) and replayed
-    once a call, with a given batch and noise copied into the graph's
-    buffers (a host batch from pinned memory).  The results equal the
-    eager step's.  The graph holds the addresses of the parameters and of
+    Each data source (on-device data, a ``batch``, injected ``noise``,
+    each of one shape) has its ``StepGraph`` with K = 1, which a given
+    batch and noise are copied into (a host batch from pinned memory).
+    A captured graph holds the addresses of the parameters and of
     ``state.opt_state``'s tensors: a state whose tensors are not those
     raises.  With a ``mesh`` the graph holds the step's collectives too
     (the gradient and metric all-reduce, and ``advantage_norm``'s batch
     statistic): every rank must call the step alike (``utils.graphs``).
-    Runs eagerly on the CPU and inside ``utils.debug_mode``.
     """
     return _graphed_step(_TrainStep(config, model, digit_bank, device_data,
                                     _global_batch(mesh)))
@@ -384,14 +368,11 @@ def make_train_step(config: Config, model: AIRModel, digit_bank=None,
 
 def _graphed_step(ts: _TrainStep) -> Callable:
     """``step(state, batch=None, noise=None)``: ``ts`` through one
-    ``StepGraph`` (K = 1) per data source on CUDA, eager on the CPU and
-    inside ``utils.debug_mode``; ``step.graphs`` maps each data source's
-    signature to its graph."""
+    ``StepGraph`` (K = 1) per data source; ``step.graphs`` maps each data
+    source's signature to its ``StepGraph``."""
     cache = {}
 
     def step(state: TrainState, batch=None, noise=None):
-        if graphs.eager(ts.device):
-            return ts.eager(state, batch, noise)
         ts.check(state)
         if batch is not None:
             batch = tuple(torch.as_tensor(t) for t in batch)
@@ -411,89 +392,83 @@ def make_scan_train_step(config: Config, model: AIRModel, digit_bank,
                          ) -> Callable:
     """``step(state) → (state, metrics)``: K train steps, metrics stacked.
 
-    The counterpart of the JAX package's ``jit(lax.scan)`` over the step.
-    On CUDA the step is captured once as a CUDA graph (at the first call,
-    after warm-up steps that leave ``state`` as it was) and replayed K
-    times a call, with the step's seeds and schedule row written before
-    each replay; the K metric rows come back stacked (leading axis K).
-    The results equal K calls of ``make_train_step``'s step.  A failed
-    capture or replay raises.
+    The counterpart of the JAX package's ``jit(lax.scan)`` over the step:
+    one ``StepGraph`` that runs the step K times a call, with the step's
+    seeds and schedule row written before each; the K metric rows come
+    back stacked (leading axis K).  The results equal K calls of
+    ``make_train_step``'s step.  A failed capture or replay raises.
 
-    The graph holds the addresses of the model's parameters and of
-    ``state.opt_state``'s tensors: a call with a state whose tensors are
-    not those raises (a restore must copy in place, as
-    ``train.checkpoint`` does).
-
-    With a ``mesh`` the graph holds each step's collectives too.  Runs
-    the K steps eagerly, by design, on the CPU and inside
-    ``utils.debug_mode`` (the counterpart of ``jax_disable_jit``).  Needs
-    an on-device data source (``digit_bank`` or ``device_data``).
-    ``scan.graphs`` holds the ``StepGraph`` once captured, under K.
+    A captured graph holds the addresses of the model's parameters and
+    of ``state.opt_state``'s tensors: a call with a state whose tensors
+    are not those raises (a restore must copy in place, as
+    ``train.checkpoint`` does).  With a ``mesh`` the graph holds each
+    step's collectives too.  Needs an on-device data source
+    (``digit_bank`` or ``device_data``).  ``scan.graphs`` holds the
+    ``StepGraph`` once built (at the first call), under K.
     """
     if digit_bank is None and device_data is None:
         raise ValueError("the K-step loop needs an on-device data source "
                          "(digit_bank or device_data)")
     ts = _TrainStep(config, model, digit_bank, device_data,
                     _global_batch(mesh))
-    graphed = None
 
     def scan(state: TrainState):
-        nonlocal graphed
-        if graphs.eager(ts.device):
-            rows = []
-            for _ in range(k_steps):
-                state, m = ts.eager(state)
-                rows.append(m)
-            return state, {k: torch.stack([m[k] for m in rows])
-                           for k in rows[0]}
         ts.check(state)
-        if graphed is None:
-            graphed = StepGraph(ts, state, k_steps)
-            scan.graphs = {k_steps: graphed}
-        return graphed.replay(state)
+        if not scan.graphs:
+            scan.graphs[k_steps] = StepGraph(ts, state, k_steps)
+        return scan.graphs[k_steps].replay(state)
 
     scan.graphs = {}
     return scan
 
 
 class StepGraph:
-    """One train step captured as a CUDA graph (``utils.graphs.Graph``),
-    replayed K times a call.
+    """One train step run K times a call: captured as a CUDA graph
+    (``utils.graphs.Graph``) at the first call outside
+    ``utils.graphs.eager``, and replayed; where ``eager`` holds, the
+    same step runs eagerly on the state passed in.
 
-    Static inputs, written before the replays of a call: the K schedule
+    Static inputs, written before the steps of a call: the K schedule
     rows (one asynchronous copy from pinned memory) and a row index the
-    graph reads and increments; a given batch and injected noise
+    step reads and increments; a given batch and injected noise
     (``batch``, ``noise``: their static copies); the generators,
-    registered with the graph and re-seeded before each replay.  The
-    graph writes each step's metrics into row ``i`` of a
-    ``(K, n_metrics)`` buffer.  The warm-up steps run on the state's own
-    tensors, which are put back after.
+    registered with the graph and re-seeded before each step.  Each step
+    writes its metrics into row ``i`` of a ``(K, n_metrics)`` buffer.
+    The warm-up steps run on the state's own tensors, which are put back
+    after.  ``graph``: the captured ``Graph``, None until then.
     """
 
     def __init__(self, ts: _TrainStep, state: TrainState, k_steps: int,
                  batch=None, noise=None):
         self.ts, self.k = ts, k_steps
         dev = ts.device
-        self.tensors = ts.state_tensors(state)
-        self.held = graphs.addresses(self.tensors)
         self.table = torch.zeros((k_steps, len(SCHEDULE)), device=dev)
         self.row = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.table.copy_(ts.schedule(state).expand(k_steps, -1))
         self.inputs = graphs.static_like((batch, noise), dev)
         self.keys, self.out = None, None
+        self.graph, self.held = None, None
+
+    def _capture(self, state: TrainState) -> None:
+        """Warm up and capture the step on ``state``'s tensors, which the
+        graph then holds."""
+        ts = self.ts
+        tensors = ts.state_tensors(state)
+        self.held = graphs.addresses(tensors)
+        self.row.zero_()                    # where eager steps left it
 
         def prepare(i):
             ts.seed(state, i)
             self.row.zero_()
 
-        self.graph = graphs.Graph(lambda: self._body(state), dev,
-                                  state=[*self.tensors, self.row],
+        self.graph = graphs.Graph(lambda: self._body(state), ts.device,
+                                  state=[*tensors, self.row],
                                   generators=ts.gens, prepare=prepare)
 
     def _body(self, state: TrainState) -> None:
         sched = torch.index_select(self.table, 0, self.row)[0]
         metrics = self.ts.run(sched, state.opt_state, *self.inputs)
-        if self.keys is None:               # the first warm-up step
+        if self.keys is None:               # the first step run
             self.keys = list(metrics)
             self.out = torch.zeros((self.k, len(self.keys)),
                                    device=self.ts.device)
@@ -504,13 +479,19 @@ class StepGraph:
         self.row.add_(1)
 
     def replay(self, state: TrainState, batch=None, noise=None):
-        """K steps from ``state`` (on ``batch`` and ``noise``, as given
-        at capture); advances it and returns the metric rows."""
+        """K steps from ``state`` (on ``batch`` and ``noise``, of the
+        signature given at construction); advances it and returns the
+        metric rows."""
         ts = self.ts
+        eager = graphs.eager(ts.device)
+        if not eager and self.graph is None:
+            # before the steps' seeds: the warm-ups re-seed the generators
+            self._capture(state)
         with span("train.steps"):
             with span("train.prepare"):
-                graphs.check_held(self.held, ts.state_tensors(state),
-                                  "state's tensors")
+                if not eager:
+                    graphs.check_held(self.held, ts.state_tensors(state),
+                                      "state's tensors")
                 graphs.fill(self.inputs, (batch, noise))
                 rows = torch.stack([ts.schedule(state, i)
                                     for i in range(self.k)])
@@ -519,18 +500,20 @@ class StepGraph:
             for i in range(self.k):
                 with span("train.seed"):
                     ts.seed(state, i)
-                self.graph.launch()
+                if eager:
+                    self._body(state)
+                else:
+                    self.graph.launch()
             ts.advance(state, self.k)
             out = self.out.clone()
         return state, {k: out[:, j] for j, k in enumerate(self.keys)}
 
 
 def _eval_forward(eval_model: AIRModel, params, imgs, nums, p_success,
-                  generator=None, noise=None):
+                  noise):
     """The eval step's device part: ``(metrics, outputs)``."""
     outputs = torch.func.functional_call(
-        eval_model, params, (imgs, p_success),
-        {"generator": generator, "noise": noise})
+        eval_model, params, (imgs, p_success), {"noise": noise})
     _, metrics = surrogate_loss(outputs)
     metrics["count_accuracy"] = count_accuracy(outputs, nums)
     metrics["count_accuracy_mode"] = count_accuracy(outputs, nums,
@@ -546,14 +529,11 @@ def make_eval_step(config: Config, model: AIRModel) -> Callable:
     ``model``'s own config with ``explore_eps=None`` (the explore floor is
     a training device); the step index only selects the annealed prior.
 
-    On CUDA the forward is a CUDA graph, one per batch shape, captured at
-    the first call and replayed a call: the noise is drawn from
-    ``generator`` before the replay, as the eager forward draws it, and
-    the prior's success probability is a device input.  The results equal
-    the eager call's, and are copies that a later call leaves alone.  The
-    graph holds the addresses of ``state.model``'s parameters: a state
-    whose parameters are not those raises.  Eager on the CPU and inside
-    ``utils.debug_mode``.
+    The forward runs through a ``GraphCache``, one graph per batch
+    shape: the noise is drawn from ``generator`` first, and the prior's
+    success probability is an input.  The results are copies that a later
+    call leaves alone.  A graph holds the addresses of ``state.model``'s
+    parameters: a state whose parameters are not those raises.
     """
     eval_model = model.with_config(
         dataclasses.replace(model.cfg, explore_eps=None))
@@ -563,16 +543,12 @@ def make_eval_step(config: Config, model: AIRModel) -> Callable:
     @torch.no_grad()
     def eval_fn(state: TrainState, imgs, nums,
                 generator: Optional[torch.Generator] = None, noise=None):
-        dev = eval_model.device
         p_success = prior_success_prob(config.prior, state.step)
         params = dict(state.model.named_parameters())
         nums = torch.as_tensor(nums)
-        if graphs.eager(dev):
-            return _eval_forward(eval_model, params, imgs.to(dev),
-                                 nums.to(dev), p_success, generator, noise)
         if noise is None:
             noise = eval_model.sample_noise(imgs.shape[0], generator)
-        return cache(params, imgs, nums, p_success, None, tuple(noise))
+        return cache(params, imgs, nums, p_success, tuple(noise))
 
     eval_fn.graphs = cache
     return eval_fn

@@ -4,9 +4,9 @@
 whose floating-point output holds a NaN raises ``FloatingPointError``,
 in the forward and in the backward (a dispatch mode sees every ATen
 operation of both; autograd's anomaly mode adds the forward's traceback
-to an error raised in the backward).  Inside it ``make_scan_train_step``
-runs its steps eagerly, as ``jax_disable_jit`` would, since a replayed
-CUDA graph runs no Python to check.  ``checkify_fn`` records the first
+to an error raised in the backward).  Inside it the graphed entry points
+run eagerly (``utils.graphs.eager``), as ``jax_disable_jit`` would, since
+a replayed CUDA graph runs no Python to check.  ``checkify_fn`` records the first
 NaN or division by zero instead of raising.
 """
 

@@ -24,12 +24,14 @@ tensors the graph reads by address (parameters, buffers, a digit bank)
 are checked at each call: a call with other tensors raises, as does a
 failed capture or replay.  Nothing falls back to eager.
 
-Every graphed entry point runs eagerly, by design, on the CPU and
-inside ``utils.debug_mode`` (the counterpart of ``jax_disable_jit``).
-Random draws stay outside the graphs: each entry point draws its noise
-from the caller's generator before the replay, exactly as its eager call
-does, and copies it in.  Only the train step keeps generators registered
-with its graphs.
+``eager(device)`` is the one place that chooses between a graph and an
+eager run: on the CPU, and inside ``utils.debug_mode`` (the counterpart
+of ``jax_disable_jit``), ``GraphCache`` and the train step's
+``StepGraph`` run their function eagerly and build no graph.  Each
+entry point has one path either way: it draws its noise from the
+caller's generator, then calls its cache, so that the CPU runs the
+Python the card captures.  Only the train step keeps generators
+registered with its graphs.
 
 A body may issue ``torch.distributed`` collectives (a mesh entry point's
 all-reduce and all-gather, the counterpart of ``jit`` over a ``Mesh``):
@@ -61,8 +63,8 @@ WARMUP = 3
 
 
 def eager(device) -> bool:
-    """Whether the graphed entry points run eagerly on ``device``: on
-    anything but CUDA, and inside ``utils.debug_mode``."""
+    """Whether a graph's function runs eagerly on ``device``: on anything
+    but CUDA, and inside ``utils.debug_mode``."""
     from attend_infer_repeat_torch.utils import debug
 
     return torch.device(device).type != "cuda" or debug.active()
@@ -244,18 +246,26 @@ def signature(x):
     return x
 
 
+def _map(fn, x):
+    """``fn`` of every tensor in a nest of tuples, lists, dicts and
+    dataclasses; anything else is kept as it is."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: _map(fn, getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: _map(fn, v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_map(fn, v) for v in x)
+    return x
+
+
 def static_like(x, device):
     """Static buffers on ``device`` for a nest of tensors, filled with
     its values (``fill``)."""
-    def empty(v):
-        if isinstance(v, torch.Tensor):
-            return torch.empty(v.shape, dtype=v.dtype, device=device)
-        if isinstance(v, dict):
-            return {k: empty(u) for k, u in v.items()}
-        if isinstance(v, (tuple, list)):
-            return type(v)(empty(u) for u in v)
-        return v
-    static = empty(x)
+    static = _map(lambda v: torch.empty(v.shape, dtype=v.dtype,
+                                        device=device), x)
     fill(static, x)
     return static
 
@@ -263,16 +273,7 @@ def static_like(x, device):
 def copy(x):
     """A copy of every tensor in a nest of tuples, lists, dicts and
     dataclasses; anything else is kept as it is."""
-    if isinstance(x, torch.Tensor):
-        return x.clone()
-    if dataclasses.is_dataclass(x) and not isinstance(x, type):
-        return dataclasses.replace(x, **{f.name: copy(getattr(x, f.name))
-                                         for f in dataclasses.fields(x)})
-    if isinstance(x, dict):
-        return {k: copy(v) for k, v in x.items()}
-    if isinstance(x, (tuple, list)):
-        return type(x)(copy(v) for v in x)
-    return x
+    return _map(torch.clone, x)
 
 
 def fill(static, values) -> None:
@@ -321,34 +322,46 @@ class GraphCache(dict):
     graph runs on; ``inputs``: nests of tuples, lists and dicts of
     tensors (``None`` stays ``None``), copied into the graph's static
     buffers on that device at each call.  Maps each signature to its
-    ``_Entry`` (``.graph``: the ``Graph``).
+    ``_Entry`` (``.graph``: the ``Graph``).  Where ``eager`` holds, a
+    call runs ``fn`` on the inputs moved to that device, and builds and
+    checks nothing.
     """
 
     def __init__(self, fn: Callable):
         super().__init__()
         self.fn = fn
 
-    def replay(self, held, *inputs):
-        """Replay the graph of ``inputs``' signature (captured at its
-        first call); returns its static outputs, which the next replay
-        rewrites."""
+    def _run(self, held, inputs):
+        """``fn(held, *inputs)``, and whether it came from a replay (the
+        graph's static outputs, which the next replay rewrites)."""
+        tensors = _held(held)
+        device = tensors[0].device
+        if eager(device):
+            out = self.fn(held, *_map(lambda t: t.to(device), inputs))
+            return out, False
         with span("graphs.lookup"):
             key = signature(inputs)
             entry = self.get(key)
             if entry is None:
-                tensors = _held(held)
-                static = static_like(inputs, tensors[0].device)
-                graph = Graph(lambda: self.fn(held, *static),
-                              tensors[0].device)
+                static = static_like(inputs, device)
+                graph = Graph(lambda: self.fn(held, *static), device)
                 entry = self[key] = _Entry(static, graph, addresses(tensors))
             else:
-                check_held(entry.held, _held(held), "parameters")
+                check_held(entry.held, tensors, "parameters")
         with span("graphs.fill"):       # a miss's build filled them too
             fill(entry.static, inputs)
-        return entry.graph.launch()
+        return entry.graph.launch(), True
+
+    def replay(self, held, *inputs):
+        """Replay the graph of ``inputs``' signature (captured at its
+        first call); returns its static outputs, which the next replay
+        rewrites."""
+        return self._run(held, inputs)[0]
 
     def __call__(self, held, *inputs):
         """``replay``, with a copy of the outputs that no call rewrites."""
-        out = self.replay(held, *inputs)
+        out, replayed = self._run(held, inputs)
+        if not replayed:
+            return out
         with span("graphs.copy_out"):
             return copy(out)

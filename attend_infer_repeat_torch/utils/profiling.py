@@ -19,11 +19,7 @@ Spans: ``graph.capture`` (a graph's warm-up runs and capture),
 ``graphs.copy_out`` (a ``GraphCache`` call), ``serve.infer`` and
 ``serve.noise`` (an infer request and its noise draw), ``train.steps``,
 ``train.prepare`` and ``train.seed`` (a call of K graphed train steps,
-its inputs and each step's re-seeding), ``train.particles`` and
-``train.vimco`` (under the ``iwae`` objective, the particles' draws, their
-one wide forward and log weights, and the VIMCO loss: the Python of a
-step, so under a step graph only its capture shows them, and eager
-steps).
+its inputs and each step's re-seeding).
 """
 
 from __future__ import annotations

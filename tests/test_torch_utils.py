@@ -134,6 +134,36 @@ def test_graph_counts_launches_by_shape(monkeypatch):
         collections.Counter({key: graphs.WARMUP + 2})
 
 
+def test_only_the_graph_layer_chooses_eager():
+    """``eager(...)`` is called in ``utils/graphs.py`` and in the train
+    step's ``StepGraph`` only: every other entry point has one path, which
+    its graph cache runs eagerly or replays."""
+    import ast
+    import pathlib
+
+    import attend_infer_repeat_torch
+
+    root = pathlib.Path(attend_infer_repeat_torch.__file__).parent
+    seen, stray = set(), []
+    for path in sorted(root.rglob("*.py")):
+        where = path.relative_to(root).as_posix()
+        tree = ast.parse(path.read_text())
+        in_class = {n: cls.name for cls in ast.walk(tree)
+                    if isinstance(cls, ast.ClassDef) for n in ast.walk(cls)}
+        for call in ast.walk(tree):
+            if isinstance(call, ast.Call) and "eager" in (
+                    getattr(call.func, "id", None),
+                    getattr(call.func, "attr", None)):
+                at = (where, in_class.get(call))
+                seen.add(at)
+                if where != "utils/graphs.py" and \
+                        at != ("train/step.py", "StepGraph"):
+                    stray.append(f"{where}:{call.lineno}")
+    assert not stray
+    assert ("utils/graphs.py", "GraphCache") in seen
+    assert ("train/step.py", "StepGraph") in seen
+
+
 def test_step_graph_keeps_forwards_per_step(monkeypatch):
     """A K-step chunk of the ``iwae`` objective, one step's graph replayed
     K times: its warm-ups and capture run the step's Python and count, a
@@ -225,6 +255,7 @@ def test_graph_cache_spans(monkeypatch):
     """A call's lookup (the first holds the capture), fill, replay and
     copy of the outputs, in order."""
     monkeypatch.setattr(graphs, "Graph", PythonAtCaptureOnly)
+    monkeypatch.setattr(graphs, "eager", lambda device: False)
     cache = graphs.GraphCache(lambda held, x: {"y": x * held})
     held, x = torch.full((3,), 2.0), torch.arange(3.0)
     with recorded() as p:
@@ -265,7 +296,8 @@ def test_step_graph_spans(monkeypatch):
 @pytest.mark.parametrize("graphed", [True, False])
 def test_infer_spans(monkeypatch, graphed):
     """A request: the noise draw, then the graph cache's spans, inside
-    ``serve.infer``; an eager request shows ``serve.infer`` alone."""
+    ``serve.infer``; an eager request shows the noise draw alone inside
+    it (the cache runs the forward with no span)."""
     from attend_infer_repeat_torch.models.air import AIRModel
     from attend_infer_repeat_torch.serving import make_infer_fn
 
@@ -279,10 +311,10 @@ def test_infer_spans(monkeypatch, graphed):
     with recorded() as p:
         for _ in range(2):
             out = infer(imgs, gen)
-    request = ["serve.infer"]
+    request = ["serve.infer", "  serve.noise"]
     if graphed:
-        request += ["  serve.noise", "  graphs.lookup", "  graphs.fill",
-                    "  graph.launch", "  graphs.copy_out"]
+        request += ["  graphs.lookup", "  graphs.fill", "  graph.launch",
+                    "  graphs.copy_out"]
     first = list(request)
     if graphed:
         first.insert(3, "    graph.capture")
