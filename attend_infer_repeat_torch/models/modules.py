@@ -16,6 +16,8 @@ on the presence logit.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import math
 from typing import Sequence, Tuple
 
@@ -88,10 +90,55 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
                     layer.bias.to(dtype))
 
 
+#: ``_ParticleDense``'s GEMM groups since the process started: ``groups``
+#: (one layer's k per-particle GEMMs: a forward, a recompute or a weight
+#: gradient) and ``forked`` (those run side by side on the particle
+#: streams).  A graph's warm-ups and capture count like eager steps and a
+#: replay runs no Python, as ``train.step.objective_counts``.
+particle_counts: collections.Counter = collections.Counter()
+
+# each CUDA device's side streams, made once, so that warm-up, capture
+# and replay issue to the same streams (and cuBLAS workspaces)
+_side_streams: dict = {}
+
+
+@contextlib.contextmanager
+def _particle_blocks(device: torch.device, k: int):
+    """Run one group of k block GEMMs: yields ``on(j)``, the context that
+    block j's GEMM runs under.
+
+    On CUDA each block has a side stream of its own: the side streams
+    wait for the current stream on entry and it waits for them on exit,
+    so the blocks run side by side (in a capture, as parallel branches of
+    the graph), each on its own stream.  Whatever the blocks write is
+    allocated on the current stream before entry.  Elsewhere the blocks
+    run in turn on the current stream.
+    """
+    particle_counts["groups"] += 1
+    if device.type != "cuda":
+        yield lambda j: contextlib.nullcontext()
+        return
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    streams = _side_streams.setdefault(index, [])
+    while len(streams) < k:
+        streams.append(torch.cuda.Stream(index))
+    current = torch.cuda.current_stream(index)
+    fork = current.record_event()
+    for s in streams[:k]:
+        s.wait_event(fork)
+    try:
+        yield lambda j: torch.cuda.stream(streams[j])
+    finally:
+        for s in streams[:k]:
+            current.wait_stream(s)
+    particle_counts["forked"] += 1
+
+
 class _ParticleDense(torch.autograd.Function):
-    """``F.linear(x, weight.to(x.dtype), bias.to(x.dtype))`` over rows in
-    ``particles`` equal blocks, with each block's bits as a forward and
-    backward of that block alone give them.
+    """``F.linear(x, weight.to(x.dtype), bias.to(x.dtype))`` over the rows
+    of a 2-D ``x`` in ``particles`` equal blocks, with each block's bits
+    as a forward and backward of that block alone give them.
 
     The forward and the weight's gradient run one GEMM a block: over all
     the rows at once, or as one batched GEMM over the blocks, cuBLAS can
@@ -100,35 +147,50 @@ class _ParticleDense(torch.autograd.Function):
     the batched weight GEMM of the encoder and the heads) and so rounds
     some outputs apart.  In the forward that flips presence samples; in
     the weight's gradient it moves the first update off the loop's by
-    bf16 ulps, and later steps' presence samples with it.  Each block's
-    weight gradient is rounded to ``x.dtype`` on its own, and the blocks'
-    are summed in float32.  The input's gradient is one GEMM (row for row
-    the blocks' own on the H100), the bias's each block's row sum in
-    ``x.dtype``, summed in float32."""
+    bf16 ulps, and later steps' presence samples with it.  A group's block
+    GEMMs are the calls ``F.linear`` and ``mm`` make on each block alone,
+    run side by side (``_particle_blocks``), each writing its block of one
+    buffer.  Each block's weight gradient is rounded to ``x.dtype`` on its
+    own, and the blocks' are summed in float32.  The input's gradient is
+    one GEMM (row for row the blocks' own on the H100), the bias's each
+    block's row sum in ``x.dtype``, summed in float32."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, particles):
         w, b = weight.to(x.dtype), bias.to(x.dtype)
         ctx.save_for_backward(x, w)
         ctx.particles = particles
-        return torch.cat([F.linear(rows, w, b)
-                          for rows in x.chunk(particles)])
+        out = x.new_empty((x.shape[0], w.shape[0]))
+        with _particle_blocks(x.device, particles) as on:
+            for j, (rows, o) in enumerate(zip(x.chunk(particles),
+                                              out.chunk(particles))):
+                with on(j):
+                    torch.addmm(b, rows, w.t(), out=o)   # F.linear's call
+        return out
 
     @staticmethod
     def backward(ctx, grad):
         x, w = ctx.saved_tensors
         k = ctx.particles
         g_x = g_w = g_b = None
-        if ctx.needs_input_grad[0]:
-            g_x = grad.matmul(w)
+        per_block = None
         if ctx.needs_input_grad[1]:
-            per_block = torch.stack([
-                g.reshape(-1, g.shape[-1]).t().mm(r.reshape(-1, r.shape[-1]))
-                for g, r in zip(grad.chunk(k), x.chunk(k))])
+            per_block = grad.new_empty((k, *w.shape))
+        group = (_particle_blocks(grad.device, k) if per_block is not None
+                 else contextlib.nullcontext())
+        with group as on:
+            if per_block is not None:
+                for j, (g, r) in enumerate(zip(grad.chunk(k), x.chunk(k))):
+                    with on(j):
+                        torch.mm(g.t(), r, out=per_block[j])
+            # on the current stream, beside the blocks' GEMMs
+            if ctx.needs_input_grad[0]:
+                g_x = grad.matmul(w)
+            if ctx.needs_input_grad[2]:
+                g_b = torch.sum(torch.sum(grad.reshape(k, -1, grad.shape[-1]),
+                                          dim=1), dim=0, dtype=torch.float32)
+        if per_block is not None:
             g_w = torch.sum(per_block, dim=0, dtype=torch.float32)
-        if ctx.needs_input_grad[2]:
-            g_b = torch.sum(torch.sum(grad.reshape(k, -1, grad.shape[-1]),
-                                      dim=1), dim=0, dtype=torch.float32)
         return g_x, g_w, g_b, None
 
 

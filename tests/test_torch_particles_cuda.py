@@ -15,7 +15,12 @@ each particle's bf16 weight gradients are rounded on their own
   blocks) give each particle's rows what a GEMM on those rows alone gives
   is printed (``-s``) and not held: cuBLAS may pick another kernel for
   another row count, which is why the forward and the weight's gradient
-  run one GEMM a particle.
+  run one GEMM a particle;
+- those GEMMs, run side by side on one side stream a particle
+  (``modules._ParticleDense``), give each bf16 layer's output and
+  gradients the bits of the blocks' GEMMs run in turn, eagerly and
+  replayed from a CUDA graph, and a replay runs them at once: a trace
+  shows two of a group's GEMMs overlap on the card.
 
 Needs a CUDA card and ``nvcc``; every test skips without a card.  Run on
 the card without the JAX package's conftest::
@@ -24,6 +29,7 @@ the card without the JAX package's conftest::
         tests/test_torch_particles_cuda.py
 """
 
+import collections
 import json
 from pathlib import Path
 
@@ -32,6 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from attend_infer_repeat_torch import configs as tcfg
+from attend_infer_repeat_torch.models import modules
+from helpers.torch_joined_blocks import JoinedBlocks, output_and_grads
 from helpers.torch_particle_loop import looped_iwae_loss
 
 pytestmark = pytest.mark.cuda
@@ -65,6 +73,7 @@ def test_wide_iwae_chunk_graph_equals_eager(cuda, bank):
     every metric row."""
     from attend_infer_repeat_torch.train import (
         create_train_state, make_scan_train_step)
+    from attend_infer_repeat_torch.train.step import objective_counts
     from attend_infer_repeat_torch.utils import debug_mode
 
     cfg = tcfg.get_config("iwae_trained")
@@ -72,6 +81,8 @@ def test_wide_iwae_chunk_graph_equals_eager(cuda, bank):
     eager = create_train_state(cfg, seed=11)
     scan = make_scan_train_step(cfg, graphed.model, bank, 2)
     eager_scan = make_scan_train_step(cfg, eager.model, bank, 2)
+    before = (objective_counts["steps"], collections.Counter(
+        modules.particle_counts))
     for _ in range(2):
         graphed, got = scan(graphed)
         with debug_mode(nans=False):
@@ -80,6 +91,13 @@ def test_wide_iwae_chunk_graph_equals_eager(cuda, bank):
         for k in want:
             assert torch.equal(got[k], want[k]), k
     assert graphed.step == eager.step == 4
+    # each run of a step's Python (eager, warm-up, capture) forks its 72
+    # groups: 8 bf16 layer uses a cell step, 3 cell steps, each in the
+    # forward, remat's recompute and the weight gradient
+    steps = objective_counts["steps"] - before[0]
+    counts = modules.particle_counts - before[1]
+    assert steps > 0
+    assert counts["groups"] == 72 * steps == counts["forked"]
     a, b = graphed.model.state_dict(), eager.model.state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     for g, st in graphed.opt_state.items():
@@ -139,23 +157,16 @@ def test_wide_step_one_matches_the_particle_loop(cuda, bank, seed):
         assert gap <= limits[f"{k}_gap.1"] / 2, (k, gap)
 
 
-def test_record_wide_gemms_against_row_slices(cuda):
-    """For each layer of the cell at ``iwae_trained``'s widths and batch
-    (k = 5, B = 1024), on random inputs: is one forward GEMM over all the
-    rows each particle's row-slice GEMM, bit for bit, and are the input
-    gradient's one GEMM, a weight GEMM batched over the blocks and the
-    blocks' bias sums each block's own?  Printed; nothing is held but
-    that the answers exist."""
+def iwae_layers(device):
+    """``iwae_trained`` and its model's layers by name: each ``(layer,
+    dtype its GEMMs run in)``."""
     from attend_infer_repeat_torch.models.air import AIRModel
-    from attend_infer_repeat_torch.models.modules import (
-        compute_dtype, decoder_dtype)
 
     cfg = tcfg.get_config("iwae_trained")
-    k, batch = cfg.train.iwae_particles, cfg.train.batch_size
-    model = AIRModel(cfg.model, use_baseline=False, device=cuda)
-    cell, d, dd = model.cell, compute_dtype(cfg.model), \
-        decoder_dtype(cfg.model)
-    layers = {
+    model = AIRModel(cfg.model, use_baseline=False, device=device)
+    cell, d, dd = model.cell, modules.compute_dtype(cfg.model), \
+        modules.decoder_dtype(cfg.model)
+    return cfg, {
         "encoder": (cell.encoder.mlp.dense[0], d),
         "where.mlp": (cell.where.mlp.dense[0], d),
         "where.loc": (cell.where.head.loc, d),
@@ -168,6 +179,17 @@ def test_record_wide_gemms_against_row_slices(cuda):
         "decoder.0": (model.decoder.mlp.dense[0], dd),
         "decoder.1": (model.decoder.mlp.dense[1], dd),
     }
+
+
+def test_record_wide_gemms_against_row_slices(cuda):
+    """For each layer of the cell at ``iwae_trained``'s widths and batch
+    (k = 5, B = 1024), on random inputs: is one forward GEMM over all the
+    rows each particle's row-slice GEMM, bit for bit, and are the input
+    gradient's one GEMM, a weight GEMM batched over the blocks and the
+    blocks' bias sums each block's own?  Printed; nothing is held but
+    that the answers exist."""
+    cfg, layers = iwae_layers(cuda)
+    k, batch = cfg.train.iwae_particles, cfg.train.batch_size
     gen = torch.Generator(cuda).manual_seed(0)
     found = {}
     with torch.no_grad():
@@ -198,3 +220,85 @@ def test_record_wide_gemms_against_row_slices(cuda):
     print(json.dumps({"wide_gemms_bit_equal_to_row_slices": found,
                       "device": torch.cuda.get_device_name(0)}))
     assert set(found) == set(layers)
+
+
+def bf16_layer_inputs(cuda):
+    """For each bf16 layer of ``iwae_trained`` (k = 5, B = 1024): its
+    name, ``k``, and random ``(x, weight, bias, grad)``."""
+    cfg, layers = iwae_layers(cuda)
+    k, batch = cfg.train.iwae_particles, cfg.train.batch_size
+    gen = torch.Generator(cuda).manual_seed(1)
+    for name, (layer, dtype) in layers.items():
+        if dtype != torch.bfloat16:
+            continue
+        n_out, n_in = layer.weight.shape
+        x = torch.randn((k * batch, n_in), generator=gen,
+                        device=cuda).to(dtype).requires_grad_()
+        grad = torch.randn((k * batch, n_out), generator=gen,
+                           device=cuda).to(dtype)
+        yield name, k, (x, layer.weight, layer.bias, grad)
+
+
+def test_forked_blocks_are_the_serial_blocks_bit_for_bit(cuda):
+    """For each bf16 layer at the cell's widths, k = 5 and B = 1024, the
+    side-by-side blocks give the output and the gradients of the input,
+    the weight and the bias that the blocks run in turn and joined give
+    (``helpers/torch_joined_blocks.py``), bit for bit: eagerly, and in two
+    replays of a captured CUDA graph.  Every group forks."""
+    from attend_infer_repeat_torch.utils.graphs import Graph
+
+    def differences(name, run, got, want):
+        return [(name, run, what) for what, a, b in zip(
+            ("out", "x", "weight", "bias"), got, want)
+            if not (a.dtype == b.dtype and torch.equal(a, b))]
+
+    names, differ = [], []
+    before = collections.Counter(modules.particle_counts)
+    for name, k, inputs in bf16_layer_inputs(cuda):
+        names.append(name)
+        want = output_and_grads(JoinedBlocks, *inputs, k)
+        differ += differences(name, "eager", output_and_grads(
+            modules._ParticleDense, *inputs, k), want)
+        graph = Graph(lambda: output_and_grads(
+            modules._ParticleDense, *inputs, k), cuda)
+        for replay in ("replay 1", "replay 2"):
+            differ += differences(name, replay, graph.launch(), want)
+    counts = modules.particle_counts - before
+    print(json.dumps({"forked_blocks_differ": differ, "layers": names,
+                      "device": torch.cuda.get_device_name(0)}))
+    assert names == ["encoder", "where.mlp", "where.loc", "what.mlp",
+                     "what.loc", "steps.mlp"]
+    assert differ == []
+    assert counts["groups"] > 0 and counts["forked"] == counts["groups"]
+
+
+def test_a_replayed_group_runs_its_gemms_at_once(cuda):
+    """A trace of one replay of the encoder layer's forward (k = 5 blocks
+    of 1,024 rows, 2,500 → 256, bf16) shows the group's 5 GEMMs
+    (memsets aside), and two of them overlap in time on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from attend_infer_repeat_torch.utils.graphs import Graph
+
+    with profile(activities=[ProfilerActivity.CUDA]):   # CUPTI up first
+        torch.ones(1, device=cuda).add_(1)
+    name, k, (x, weight, bias, _) = next(bf16_layer_inputs(cuda))
+    assert name == "encoder"
+    # weight and bias in bf16 already: the replay runs the GEMMs alone
+    x, w, b = (t.detach().to(torch.bfloat16) for t in (x, weight, bias))
+    graph = Graph(lambda: modules._ParticleDense.apply(x, w, b, k), cuda)
+    torch.cuda.synchronize(cuda)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.launch()
+        torch.cuda.synchronize(cuda)
+    kernels = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA
+                     and not e.name().startswith(("Memset", "Memcpy")))
+    overlaps = [(a[2], b[2]) for i, a in enumerate(kernels)
+                for b in kernels[i + 1:] if b[0] < a[1]]
+    print(json.dumps({"kernels_ns": kernels,
+                      "overlapping_pairs": len(overlaps)}))
+    assert len(kernels) == k
+    assert overlaps
