@@ -5,14 +5,24 @@ are set from them (``PERF.md`` gives the readings).
     python -m air_bench.calibrate --workload <cell> --seeds 12 --controls 3
         [--first-seed N]
 
+The cell's traffic kind owns its calibration: ``traffic/<kind>.py`` gives
+``control_numbers(cell, seed, dev)``, the compared numbers with the
+reference one precision lower in the program's place, and
+``readings(cell, seeds, controls, dev)``, ``{"program": [...], "control":
+[...], <fault>: [...]}`` with one dict of numbers a seed.  This module
+asks the kind for both (``hook``); ``chunks`` points at ``train_control``
+and ``train_readings`` below, ``closed_loop`` at ``serve_control`` and
+``serve_readings``.
+
 One process per cell, one set-up: the cell's entry is built once and fed
 each seed's weights in place (a graph holds its tensors' addresses), so
 each seed costs one call of the entry and the reference.
 
-- program: train cells call the K-step entry from a fresh state of the
-  seed and compare its first three steps with the reference; serving
-  cells send the cell's checked requests (as many as a run checks, the
-  longest among them) through the infer entry and compare the answers.
+- program: train cells (``chunks``) call the K-step entry from a fresh
+  state of the seed and compare its first three steps with the reference;
+  serving cells (``closed_loop``) send the cell's checked requests (as
+  many as a run checks, the longest among them) through the infer entry
+  and compare the answers.
 - control: the reference computed one precision below the configuration
   (``Precision(lower=True)``: fp8 for bfloat16, TF32 for float32) in the
   program's place.
@@ -26,7 +36,8 @@ each seed costs one call of the entry and the reference.
   the bound, ``logsumexp - log k``.
 
 Prints one JSON line a reading, then per number the largest program
-reading and the smallest control and fault readings.
+reading and the smallest reading of the control and of each fault that
+was read (none with ``--controls 0``).
 """
 
 from __future__ import annotations
@@ -128,17 +139,40 @@ def _requests(cell, seed, dev) -> list:
                              *cfg["data"]["canvas_size"]))
 
 
+def hook(cell: dict, name: str):
+    """The calibration function ``name`` (``control_numbers`` or
+    ``readings``) of the cell's traffic kind."""
+    kind = cell["traffic_doc"]["kind"]
+    fn = getattr(layout.kind(kind), name, None)
+    if fn is None:
+        raise AttributeError(f"traffic kind {kind!r} (traffic/{kind}.py) "
+                             f"has no {name}(): calibration needs "
+                             f"control_numbers() and readings()")
+    return fn
+
+
 def control_numbers(cell, seed, dev) -> dict:
     """The cell's numbers with the reference one precision lower in the
-    program's place."""
+    program's place, as the cell's traffic kind reads them."""
+    return hook(cell, "control_numbers")(cell, seed, dev)
+
+
+def train_control(cell, seed, dev) -> dict:
+    """``control_numbers`` of a train cell: the reference's first three
+    steps one precision lower against the reference's."""
     cfg = cell["config_doc"]["config"]
     w = weights.make(cfg, cfg["train"]["use_baseline"], seed, dev)
-    if cell["traffic_doc"]["kind"] == "chunks":
-        bank = rtrain.synth.digit_bank(cfg["data"]["digit_size"], dev)
-        ref = rtrain.Trainer(cfg, w, bank, seed).follow(3)
-        low = rtrain.Trainer(cfg, w, bank, seed,
-                             Precision(lower=True)).follow(3)
-        return compare.train_numbers(low, ref)
+    bank = rtrain.synth.digit_bank(cfg["data"]["digit_size"], dev)
+    ref = rtrain.Trainer(cfg, w, bank, seed).follow(3)
+    low = rtrain.Trainer(cfg, w, bank, seed, Precision(lower=True)).follow(3)
+    return compare.train_numbers(low, ref)
+
+
+def serve_control(cell, seed, dev) -> dict:
+    """``control_numbers`` of a serving cell: the reference's answers to
+    the checked requests one precision lower against the reference's."""
+    cfg = cell["config_doc"]["config"]
+    w = weights.make(cfg, cfg["train"]["use_baseline"], seed, dev)
     g = torch.Generator(dev).manual_seed(derived_seed(seed, "noise"))
     kept = []
     for c in _requests(cell, seed, dev):
@@ -212,6 +246,16 @@ def serve_readings(cell, seeds, controls, dev):
     return out
 
 
+def summarize(out: dict) -> dict:
+    """Per number: the largest program reading, and the smallest reading
+    of the control and of each fault that has readings."""
+    return {number: {
+        "program_max": max(x[number] for x in out["program"]),
+        **{f"{k}_min": min(x[number] for x in v)
+           for k, v in out.items() if k != "program" and v}}
+        for number in out["program"][0]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -233,17 +277,10 @@ def main(argv=None) -> int:
     cell = layout.cell(args.workload)
     seeds = [args.first_seed + 7919 * i for i in range(args.seeds)]
     t = time.perf_counter()
-    read = train_readings if cell["traffic_doc"]["kind"] == "chunks" \
-        else serve_readings
-    out = read(cell, seeds, args.controls, torch.device("cuda"))
-    summary = {}
-    for number in out["program"][0]:
-        summary[number] = {
-            "program_max": max(x[number] for x in out["program"]),
-            **{f"{k}_min": min(x[number] for x in v)
-               for k, v in out.items() if k != "program"}}
+    out = hook(cell, "readings")(cell, seeds, args.controls,
+                                 torch.device("cuda"))
     print(json.dumps({"workload": args.workload, "seconds":
-                      time.perf_counter() - t, "summary": summary}))
+                      time.perf_counter() - t, "summary": summarize(out)}))
     return 0
 
 

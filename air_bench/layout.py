@@ -8,7 +8,11 @@
 ``traffic/<traffic>.json``  the traffic mix's parameters; ``kind`` names
                             the generator that reads them
 ``traffic/<kind>.py``       that generator: sets up, drives the window and
-                            checks the answers (``run(r)``)
+                            checks the answers (``run(r)``); reads the
+                            kind's calibration (``control_numbers``,
+                            ``readings``: ``air_bench.calibrate``); cuts a
+                            cell for the CPU tests (``TINY`` traffic keys,
+                            optional ``tiny_config(cfg)``)
 ``metrics/<metric>.py``     a per-layer metric's reader (``read(r)``)
 
 A later cell, configuration, traffic mix or metric is a file added beside

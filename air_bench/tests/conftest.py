@@ -37,11 +37,14 @@ def iwae_trained(cfg: dict) -> dict:
 
 def tiny_cell(name: str, root=layout.ROOT) -> dict:
     """The cell at tiny widths, with the tiny settings its traffic kind
-    keeps (``TINY`` of ``traffic/<kind>.py``)."""
+    keeps: ``traffic/<kind>.py``'s ``TINY`` traffic keys, and its
+    ``tiny_config(cfg)``, where it has one, applied after ``tiny_config``
+    to cut the kind's own sections."""
     cell = layout.cell(name, root)
-    cell["config_doc"] = dict(cell["config_doc"],
-                              config=tiny_config(cell["config_doc"]["config"]))
     kind = layout.kind(cell["traffic_doc"]["kind"], root)
+    cfg = tiny_config(cell["config_doc"]["config"])
+    cfg = getattr(kind, "tiny_config", lambda c: c)(cfg)
+    cell["config_doc"] = dict(cell["config_doc"], config=cfg)
     cell["traffic_doc"] = dict(cell["traffic_doc"],
                                **getattr(kind, "TINY", {}))
     return cell

@@ -2,6 +2,8 @@
 below the configuration (fp8 for bfloat16, TF32 for float32), put in the
 program's place, at each cell's own size on the card.  The benchmark's
 runs do not run it; ``air_bench.calibrate`` reads it over several seeds.
+Each cell reaches it through its traffic kind's ``control_numbers``, so a
+cell of a new kind is covered by the kind's file alone.
 
     python -m pytest -p no:cacheprovider -m cuda air_bench/tests/test_control.py
 """

@@ -19,8 +19,8 @@ from air_bench import layout
 from air_bench.tests.conftest import tiny_cell
 for m in pkgutil.walk_packages(air_bench.__path__, "air_bench."):
     importlib.import_module(m.name)
-for name in ("chunks", "closed_loop"):
-    layout.kind(name)
+for path in sorted((layout.ROOT / "traffic").glob("*.py")):
+    layout.kind(path.stem)
 layout.metric_readers()
 air_bench.run.run_cell(tiny_cell("train.canonical_fast"), 3, 0.1, True, "cpu")
 air_bench.run.run_cell(tiny_cell("serve_bulk.canonical_fast"), 3, 0.1,

@@ -13,6 +13,9 @@ in flight at ``--seconds`` has completed.
 Traced (``--trace 1``): the ``trace_chunks`` chunks that follow the
 window's last.  Each run prints the host's time to issue a chunk and the
 time between chunk completions (median, min, max).
+
+Calibration (``control_numbers``, ``readings``) is ``air_bench.calibrate``'s
+``train_control`` and ``train_readings``.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 
 from air_bench import program
 from air_bench.reference import compare, synth
-from air_bench.reference.train import Trainer, readings
+from air_bench.reference.train import Trainer, readings as step_readings
 from air_bench.run import clocks
 from air_bench.yardstick import trace, weights
 
@@ -57,7 +60,8 @@ def run(r) -> None:
     scan = program.air().make_scan_train_step(program.config(cfg),
                                               state.model, bank, k)
     state, rows = scan(state)
-    first = {key: rows[key][:FOLLOWED].tolist() for key in readings(cfg)}
+    first = {key: rows[key][:FOLLOWED].tolist()
+             for key in step_readings(cfg)}
     pools = program.graph_pools(scan)
     r.setup_done()
 
@@ -117,3 +121,20 @@ def run(r) -> None:
                              r.limits)
     r.say(f"reference: {FOLLOWED} steps in {time.perf_counter() - t} s; "
           f"program {first}, reference {followed}")
+
+
+def control_numbers(cell, seed, dev) -> dict:
+    """Calibration: the reference's first three steps one precision lower
+    against its own (``air_bench.calibrate``)."""
+    from air_bench import calibrate
+
+    return calibrate.train_control(cell, seed, dev)
+
+
+def readings(cell, seeds, controls, dev) -> dict:
+    """Calibration: the program's first three steps over ``seeds``, the
+    control's and each of ``calibrate.FAULTS``' over the first
+    ``controls`` of them."""
+    from air_bench import calibrate
+
+    return calibrate.train_readings(cell, seeds, controls, dev)

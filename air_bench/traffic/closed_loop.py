@@ -12,6 +12,9 @@ the window.  A request fails when an answer is not finite.  Checked:
 ``sample_requests`` requests drawn from the seed (a reservoir over the
 window).  Traced (``--trace 1``): the ``trace_requests`` requests that
 follow the window's last.
+
+Calibration (``control_numbers``, ``readings``) is ``air_bench.calibrate``'s
+``serve_control`` and ``serve_readings``.
 """
 
 from __future__ import annotations
@@ -87,3 +90,19 @@ def run(r) -> None:
     r.checks = serve.check(r, srv.weights,
                            [(pool[j], st, a) for j, st, a in kept])
     r.say(f"reference: {len(kept)} requests in {time.perf_counter() - t} s")
+
+
+def control_numbers(cell, seed, dev) -> dict:
+    """Calibration: the reference's answers to the checked requests one
+    precision lower against its own (``air_bench.calibrate``)."""
+    from air_bench import calibrate
+
+    return calibrate.serve_control(cell, seed, dev)
+
+
+def readings(cell, seeds, controls, dev) -> dict:
+    """Calibration: the program's answers over ``seeds`` and the
+    control's over the first ``controls`` of them."""
+    from air_bench import calibrate
+
+    return calibrate.serve_readings(cell, seeds, controls, dev)
