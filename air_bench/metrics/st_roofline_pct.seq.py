@@ -1,0 +1,16 @@
+"""The spatial transformer's share of its roofline in SQAIR train steps:
+the least time of the steps' ST work (``yardstick.sqair_work.train_step``,
+at the card's HBM rate) over the device time of the kernels whose names
+start with ``st_gather``.  Cells of the ``sequences`` traffic kind only."""
+
+from air_bench.yardstick import sqair_work
+
+UNIT = "%"
+
+
+def read(r):
+    if r.kind != "sequences" or r.peaks is None \
+            or not r.summary["st_kernel_s"]:
+        return None
+    work = sum(sqair_work.train_step(r.cfg).values()) * r.traced["steps"]
+    return 100.0 * work / r.peaks["hbm_bytes_s"] / r.summary["st_kernel_s"]

@@ -41,6 +41,8 @@ _EXPORTS = {
     "AIRCell": "models",
     "AIROutputs": "models",
     "AIRStepOutput": "models",
+    "SQAIRModel": "models",
+    "SequenceConfig": "configs",
     "make_infer_fn": "serving",
     "make_generate_fn": "serving",
     "load_digit_bank": "data",

@@ -160,6 +160,29 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SequenceConfig:
+    """Sequential AIR (``models/sqair.py``): the frames, the propagation
+    core's widths and the motion of the synthesized sequences
+    (``data.synth.synthesize_sequences``).  The port's own section: the
+    JAX package has no sequence model, so it stays outside ``Config``,
+    which is held equal to the JAX package's."""
+
+    frames: int = 10
+    # the proposal glimpse is taken at the previous window, scaled by this
+    proposal_scale: float = 2.0
+    temporal_hidden: int = 256
+    relation_hidden: int = 256
+    prior_hidden: int = 256
+    proposal_hidden: Tuple[int, ...] = (256,)
+    # each digit moves at a constant speed of min..max pixels a frame in a
+    # uniform direction, bouncing off the canvas's edges, and enters at a
+    # frame drawn uniformly from 0..max_entry_frame
+    min_speed: float = 1.0
+    max_speed: float = 3.0
+    max_entry_frame: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = ModelConfig()
     prior: PriorAnnealConfig = PriorAnnealConfig()

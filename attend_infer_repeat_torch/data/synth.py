@@ -18,6 +18,11 @@ Per canvas:
 ``make_synth_fn`` takes the draws first and synthesizes from them through
 a ``utils.graphs.GraphCache``: one CUDA graph per batch on the card,
 eager where ``utils.graphs.eager`` holds.
+
+``synthesize_sequences`` makes moving-digit sequences for Sequential AIR
+(``models/sqair.py``): each digit of a sequence moves at a constant
+velocity, bounces off the canvas's edges and enters at a frame of its
+own; every frame of every digit is pasted in one call.
 """
 
 from __future__ import annotations
@@ -28,9 +33,10 @@ from typing import Dict, Optional
 import torch
 
 from attend_infer_repeat_torch import resolve_device
-from attend_infer_repeat_torch.configs import DataConfig
+from attend_infer_repeat_torch.configs import DataConfig, SequenceConfig
 from attend_infer_repeat_torch.ops.spatial_transformer import st_paste
 from attend_infer_repeat_torch.utils import graphs
+from attend_infer_repeat_torch.utils.profiling import span
 
 
 def _grid_size(t_slots: int) -> int:
@@ -188,3 +194,81 @@ def make_synth_fn(cfg: DataConfig, digit_bank, device=None):
 
     synth.graphs = cache
     return synth
+
+
+def sample_sequence_draws(cfg: DataConfig, seq: SequenceConfig, batch: int,
+                          n_bank: int,
+                          generator: Optional[torch.Generator] = None,
+                          device=None) -> Dict[str, torch.Tensor]:
+    """The random numbers one batch of sequences consumes, drawn from
+    ``generator`` in this order: the count, each slot's digit, scale,
+    entry frame, start (a fraction of the free range on each axis), speed
+    (pixels a frame) and direction."""
+    t_slots = max(cfg.max_digits, 1)
+    lo, hi = cfg.scale_range
+    shape = (batch, t_slots)
+    kw = dict(generator=generator, device=device)
+    return {
+        "nums": torch.randint(cfg.min_digits, cfg.max_digits + 1, (batch,),
+                              **kw),
+        "idx": torch.randint(0, n_bank, shape, **kw),
+        "scale": lo + (hi - lo) * torch.rand(shape, **kw),
+        "entry": torch.randint(0, seq.max_entry_frame + 1, shape, **kw),
+        "start": torch.rand(shape + (2,), **kw),
+        "speed": seq.min_speed + (seq.max_speed - seq.min_speed)
+        * torch.rand(shape, **kw),
+        "angle": (2.0 * math.pi) * torch.rand(shape, **kw),
+    }
+
+
+def _bounce(start, velocity, steps, half):
+    """Positions ``(..., T)`` of a point that starts at ``start`` (a
+    fraction of the range ``[-(1 - half), 1 - half]``) and moves by
+    ``velocity`` a frame for ``steps`` frames, reflected at both ends."""
+    span_ = torch.clamp(2.0 * (1.0 - half), min=1e-6)[..., None]
+    y = torch.remainder(start[..., None] * span_ + velocity[..., None]
+                        * steps, 2.0 * span_)
+    return (half - 1.0)[..., None] + span_ - torch.abs(y - span_)
+
+
+def synthesize_sequences(digit_bank: torch.Tensor, cfg: DataConfig,
+                         seq: SequenceConfig, batch: int,
+                         generator: Optional[torch.Generator] = None):
+    """``(frames (batch, T, H, W) float32, nums (batch,) int32)``.
+
+    A sequence holds ``k ~ Uniform{min_digits .. max_digits}`` digits.
+    Slot s's digit enters at its frame ``e_s`` at its start and moves on
+    from there, ``speed`` pixels a frame along its direction, bouncing
+    inside the canvas; a frame sums its present digits, clipped to
+    [0, 1].  The random numbers are ``sample_sequence_draws``' from
+    ``generator``.
+    """
+    with span("data.sequences"):
+        ch, cw = cfg.canvas_size
+        dh, dw = cfg.digit_size
+        t_slots, frames = max(cfg.max_digits, 1), seq.frames
+        dev = digit_bank.device
+        draws = sample_sequence_draws(cfg, seq, batch, digit_bank.shape[0],
+                                      generator, dev)
+        t = torch.arange(frames, dtype=torch.float32, device=dev)
+        entry = draws["entry"].to(torch.float32)
+        steps = torch.clamp(t - entry[..., None], min=0.0)   # (B, S, T)
+        s = draws["scale"]
+        sx, sy = s * dw / cw, s * dh / ch
+        # one pixel is 2 / (n - 1) of the [-1, 1] axis
+        vx = draws["speed"] * torch.cos(draws["angle"]) * (2.0 / (cw - 1))
+        vy = draws["speed"] * torch.sin(draws["angle"]) * (2.0 / (ch - 1))
+        tx = _bounce(draws["start"][..., 0], vx, steps, sx)
+        ty = _bounce(draws["start"][..., 1], vy, steps, sy)
+        z_where = torch.stack([sx[..., None].expand_as(tx),
+                               sy[..., None].expand_as(ty), tx, ty],
+                              dim=-1)                        # (B, S, T, 4)
+        slot = torch.arange(t_slots, device=dev)
+        present = ((slot[None, :] < draws["nums"][:, None])[..., None]
+                   & (t >= entry[..., None])).to(torch.float32)  # (B, S, T)
+        glimpses = digit_bank[draws["idx"]][:, :, None].expand(
+            -1, -1, frames, -1, -1)                     # (B, S, T, dh, dw)
+        pastes = st_paste(glimpses, z_where, (ch, cw))       # (B, S, T, H, W)
+        imgs = torch.clamp(torch.sum(pastes * present[..., None, None],
+                                     dim=1), 0.0, 1.0)
+        return imgs, draws["nums"].to(torch.int32)

@@ -1,6 +1,9 @@
-"""Models: the AIR model, its recurrent cell and their modules."""
+"""Models: the AIR model, its recurrent cell, Sequential AIR and their
+modules."""
 
 from attend_infer_repeat_torch.models.air import AIRModel, AIROutputs
 from attend_infer_repeat_torch.models.cell import AIRCell, AIRStepOutput
+from attend_infer_repeat_torch.models.sqair import SQAIRModel, SQAIROutputs
 
-__all__ = ["AIRModel", "AIROutputs", "AIRCell", "AIRStepOutput"]
+__all__ = ["AIRModel", "AIROutputs", "AIRCell", "AIRStepOutput",
+           "SQAIRModel", "SQAIROutputs"]

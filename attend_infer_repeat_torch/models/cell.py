@@ -101,8 +101,13 @@ class AIRCell(nn.Module):
     def forward(self, carry: Carry, img: torch.Tensor,
                 decoder: GlimpseDecoder, eps_where: torch.Tensor,
                 eps_what: torch.Tensor, u_pres: torch.Tensor,
-                particles: int = 1):
+                particles: int = 1, free: torch.Tensor | None = None):
+        """``free (B, 1)``, where given, masks the carried presence before
+        the step: 0 where no slot is left for another object (SQAIR's
+        discovery), so the step and the rest of the chain are absent."""
         cfg = self.cfg
+        if free is not None:
+            carry = (*carry[:4], carry[4] * free)
         args = (carry, img, decoder, eps_where, eps_what, u_pres, particles)
         if not (cfg.remat and torch.is_grad_enabled()):
             return self._step(*args)

@@ -33,9 +33,11 @@ import torch
 from attend_infer_repeat_torch.configs import (
     Config,
     PriorAnnealConfig,
+    SequenceConfig,
     TrainConfig,
 )
 from attend_infer_repeat_torch.models.air import AIRModel
+from attend_infer_repeat_torch.models.sqair import SQAIRModel
 from attend_infer_repeat_torch.ops.math import exp_anneal, linear_anneal
 
 RMS_DECAY, RMS_EPS = 0.9, 1e-8
@@ -163,15 +165,25 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def create_train_state(config: Config, seed: int | None = None,
-                       device=None) -> TrainState:
+                       device=None,
+                       sequence: SequenceConfig | None = None) -> TrainState:
     """A fresh model (flax-style init from ``seed``) and optimizer state.
 
     ``seed`` defaults to ``config.train.seed``; the model runs on CUDA
-    unless ``device="cpu"``.
+    unless ``device="cpu"``.  With ``sequence`` the model is a
+    ``SQAIRModel`` of ``config.model`` over such sequences, with no NVIL
+    baseline (one ``model`` group).
     """
     seed = config.train.seed if seed is None else seed
-    model = AIRModel(config.model, use_baseline=config.train.use_baseline,
-                     device=device, seed=seed)
+    if sequence is not None:
+        if config.train.use_baseline:
+            raise ValueError("SQAIR trains without the NVIL baseline "
+                             "(train.use_baseline=False)")
+        model = SQAIRModel(config.model, sequence, device=device, seed=seed)
+    else:
+        model = AIRModel(config.model,
+                         use_baseline=config.train.use_baseline,
+                         device=device, seed=seed)
     return TrainState(step=0, model=model,
                       opt_state=Optimizer(config.train, model).init(),
                       base_seed=seed)

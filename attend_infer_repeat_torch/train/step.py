@@ -53,7 +53,10 @@ import numpy as np
 import torch
 
 from attend_infer_repeat_torch.configs import Config
-from attend_infer_repeat_torch.data.synth import synthesize_batch
+from attend_infer_repeat_torch.data.synth import (
+    synthesize_batch,
+    synthesize_sequences,
+)
 from attend_infer_repeat_torch.models.air import AIRModel
 from attend_infer_repeat_torch.models.estimator import (
     count_accuracy,
@@ -62,6 +65,7 @@ from attend_infer_repeat_torch.models.estimator import (
     surrogate_loss,
     vimco_surrogate_loss,
 )
+from attend_infer_repeat_torch.models.sqair import SQAIRModel
 from attend_infer_repeat_torch.train.state import (
     GROUPS,
     Optimizer,
@@ -126,12 +130,42 @@ def make_objective_loss_fn(config: Config, model: AIRModel, imgs,
     Particle 0's rows carry the reporting surface; the ELBO decomposition
     is averaged over particles and batch.
 
+    A ``SQAIRModel`` (``imgs (B, T, H, W)``) trains under ``"iwae"``
+    alone, its particles along the batch as above (its draws are
+    ``(T, N, B, ...)``): each particle's log weight is summed over the
+    frames, and the log-likelihood and both phases' KL estimates are
+    averaged over particles and batch.
+
     Each call of ``loss_fn`` adds to ``objective_counts`` one step and
     one model forward.
     """
     tcfg = config.train
 
-    if tcfg.objective == "iwae":
+    if isinstance(model, SQAIRModel):
+        if tcfg.objective != "iwae":
+            raise ValueError("SQAIR trains under the iwae objective only, "
+                             f"not {tcfg.objective!r}")
+        k = tcfg.iwae_particles
+
+        def loss_fn():
+            batch = imgs.shape[0]
+            draws = noise if noise is not None else [
+                model.sample_noise(batch, generator) for _ in range(k)]
+            out = model(imgs.repeat(k, 1, 1, 1), p_success,
+                        noise=tuple(torch.cat(parts, dim=2)
+                                    for parts in zip(*draws)),
+                        particles=k, what_weight=kl_beta)
+            lws = out.log_weight.reshape(k, batch)
+            objective_counts.update(steps=1, forwards=1)
+            loss, metrics = vimco_surrogate_loss(
+                lws, out.log_q_pres.reshape(k, batch))
+            metrics.update(
+                {f: torch.mean(getattr(out, f))
+                 for f in ("log_likelihood", "kl_prop", "kl_disc",
+                           "predicted_steps")},
+                log_w_abs=torch.mean(torch.abs(lws.detach())))
+            return loss, (metrics, out.head(batch))
+    elif tcfg.objective == "iwae":
         k = tcfg.iwae_particles
 
         def loss_fn():
@@ -233,6 +267,11 @@ class _TrainStep:
                                           dtype=torch.int32).to(dev)))
         self.batch_size = tcfg.batch_size if dp is None \
             else dp.batch_size(tcfg.batch_size)
+        self.seq = getattr(model, "seq", None)
+        if self.seq is not None and (device_data is not None
+                                     or dp is not None):
+            raise ValueError("SQAIR trains on synthesized sequences on one "
+                             "device (digit_bank, no mesh)")
         self.opt = Optimizer(tcfg, model)
         self.names, self.params = zip(*model.named_parameters())
         self.tops = sorted({n.split(".", 1)[0] for n in self.names})
@@ -275,6 +314,10 @@ class _TrainStep:
             return ds_imgs[idx], ds_nums[idx]
         if self.bank is not None:
             with torch.no_grad():
+                if self.seq is not None:
+                    return synthesize_sequences(self.bank, self.config.data,
+                                                self.seq, self.batch_size,
+                                                g_data)
                 return synthesize_batch(self.bank, self.config.data,
                                         self.batch_size, g_data)
         raise ValueError("no data: build the step with digit_bank or "
@@ -308,8 +351,9 @@ class _TrainStep:
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         metrics["count_accuracy"] = count_accuracy(outputs, nums)
-        metrics["count_accuracy_mode"] = count_accuracy(outputs, nums,
-                                                        use_mode=True)
+        if outputs.mode_steps is not None:
+            metrics["count_accuracy_mode"] = count_accuracy(outputs, nums,
+                                                            use_mode=True)
         if dp is not None:
             grads = dp.mean(grads)
             metrics = dict(zip(metrics, dp.mean(list(metrics.values()))))

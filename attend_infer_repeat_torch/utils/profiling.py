@@ -19,7 +19,11 @@ Spans: ``graph.capture`` (a graph's warm-up runs and capture),
 ``graphs.copy_out`` (a ``GraphCache`` call), ``serve.infer`` and
 ``serve.noise`` (an infer request and its noise draw), ``train.steps``,
 ``train.prepare`` and ``train.seed`` (a call of K graphed train steps,
-its inputs and each step's re-seeding).
+its inputs and each step's re-seeding), ``sqair.propagate``,
+``sqair.discover`` and ``sqair.compact`` (a SQAIR frame's phases) and
+``data.sequences`` (the synthesis of a batch of sequences).  A graph's
+replay runs no Python, so spans inside a captured step show in eager and
+capture traces alone.
 """
 
 from __future__ import annotations
