@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from attend_infer_repeat_torch.configs import ModelConfig
+from attend_infer_repeat_torch.ops import lstm_kernel
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -400,9 +401,59 @@ class StepsPredictor(nn.Module):
         return p  # (..., 1)
 
 
+#: The LSTM kernels' launches since the process started: ``fused``
+#: (forward) and ``fused_bwd`` (backward), counted as ``st_kernel``'s
+#: launches: a graph's warm-ups count, its capture does not, and each
+#: replay adds the launches of one captured run (``utils/graphs.py``).
+lstm_counts: collections.Counter = collections.Counter()
+
+
+class _LSTMPointwise(torch.autograd.Function):
+    """The LSTM cell's chain from the gate add to ``h``: ``(a = ih(x),
+    b = hh(h), c_prev) → (c, h)`` over 2-D rows, one kernel each way on
+    CUDA tensors (``ops/lstm_kernel.py``, float32 only), bit-equal to the
+    unfused ops and their autograd; CPU tensors take the kernels' plain
+    twins.
+
+    Saves its inputs, from which the backward recomputes the
+    activations.  A cotangent autograd does not have (the last state's
+    ``c``, an unused ``h``) stays None, so its term is skipped, as
+    autograd skips it for the unfused ops.  The gates' gradient is that
+    of ``a`` and of ``b`` alike."""
+
+    @staticmethod
+    def forward(ctx, a, b, c_prev):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(a, b, c_prev)
+        if not a.is_cuda:
+            return lstm_kernel.lstm_cell_plain(a, b, c_prev)
+        c, h = lstm_kernel.lstm_cell_cuda(a, b, c_prev)
+        lstm_counts["fused"] += 1
+        return c, h
+
+    @staticmethod
+    def backward(ctx, dc, dh):
+        if dc is None and dh is None:
+            return None, None, None
+        a, b, c_prev = ctx.saved_tensors
+        need_a, need_b, need_c = ctx.needs_input_grad
+        if a.is_cuda:
+            lstm_counts["fused_bwd"] += 1
+            bwd = lstm_kernel.lstm_cell_bwd_cuda
+        else:
+            bwd = lstm_kernel.lstm_cell_bwd_plain
+        d_gates, dc_prev = bwd(a, b, c_prev, dh, dc, need_c_prev=need_c)
+        return (d_gates if need_a else None, d_gates if need_b else None,
+                dc_prev)
+
+
 class LSTMCell(nn.Module):
     """flax ``OptimizedLSTMCell``: gates i, f, g, o; bias on the hidden
-    path only; state ``(c, h)``.  Runs in float32."""
+    path only; state ``(c, h)``.  Runs in float32.
+
+    The two GEMMs run as linears; the pointwise chain after them runs as
+    ``_LSTMPointwise`` over the rows of every leading dimension: one
+    kernel each way on the card, which takes float32 alone."""
 
     def __init__(self, in_features: int, hidden: int):
         super().__init__()
@@ -411,9 +462,12 @@ class LSTMCell(nn.Module):
 
     def forward(self, state, x):
         c, h = state
-        i, f, g, o = (self.ih(x) + self.hh(h)).chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        a, b = self.ih(x), self.hh(h)
+        lead = c.shape[:-1]
+        c, h = _LSTMPointwise.apply(a.reshape(-1, a.shape[-1]),
+                                    b.reshape(-1, b.shape[-1]),
+                                    c.reshape(-1, c.shape[-1]))
+        c, h = c.reshape(lead + c.shape[-1:]), h.reshape(lead + h.shape[-1:])
         return (c, h), h
 
 

@@ -3,10 +3,12 @@
 ``csrc/st_gather.cu`` is the hand-written CUDA counterpart of the Pallas
 ``_gather_kernel`` and ``csrc/st_gather_bwd.cu`` of its backward
 ``_gather_bwd_kernel`` (both in ``attend_infer_repeat_tpu/ops/pallas_st.py``).
-This module compiles both, with one ``nvcc`` call for ``sm_90a`` at first
-use, into one shared library with a plain C interface (cached by a hash
-of all sources under ``attend_infer_repeat_torch/_build/``), loads it
-with ``ctypes`` and launches on PyTorch's current stream.
+This module compiles both, and ``csrc/lstm_cell.cu`` (the LSTM cell's
+pointwise kernels, bound in ``ops/lstm_kernel.py``), with one ``nvcc``
+call for ``sm_90a`` at first use, into one shared library with a plain C
+interface (cached by a hash of all sources under
+``attend_infer_repeat_torch/_build/``), loads it with ``ctypes`` and
+launches on PyTorch's current stream.
 
 ``st_gather_cuda`` and ``st_gather_bwd_cuda`` take CUDA tensors only and
 launch their kernel or raise; ``st_gather_plain`` and
@@ -48,7 +50,8 @@ from attend_infer_repeat_torch.ops.spatial_transformer import (
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "st_gather.cu"
 BWD_SOURCE = _PKG / "csrc" / "st_gather_bwd.cu"
-SOURCES = (_PKG / "csrc" / "st_taps.cuh", SOURCE, BWD_SOURCE)
+LSTM_SOURCE = _PKG / "csrc" / "lstm_cell.cu"
+SOURCES = (_PKG / "csrc" / "st_taps.cuh", SOURCE, BWD_SOURCE, LSTM_SOURCE)
 DEFAULT_BUILD_DIR = _PKG / "_build"
 #: Where ``build`` puts the library (``utils.enable_compilation_cache``).
 BUILD_DIR = DEFAULT_BUILD_DIR
@@ -90,7 +93,8 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE),
-                           str(BWD_SOURCE)], capture_output=True, text=True)
+                           str(BWD_SOURCE), str(LSTM_SOURCE)],
+                          capture_output=True, text=True)
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {SOURCE.parent}:\n{proc.stderr}")
@@ -119,6 +123,16 @@ def _load():
             ctypes.c_longlong, i32, i32, i32, i32,  # n in_h in_w out_h out_w
             i32, ptr]                               # carry_bf16 stream
         lib.st_gather_accumulate.restype = i32
+        i64 = ctypes.c_longlong
+        lib.lstm_cell.argtypes = [
+            ptr, ptr, ptr, i64,                     # a b c_prev its stride
+            ptr, ptr, i64, i32, ptr]                # c h rows hidden stream
+        lib.lstm_cell.restype = i32
+        lib.lstm_cell_bwd.argtypes = [
+            ptr, ptr, ptr, i64,                     # a b c_prev its stride
+            ptr, i64, ptr, i64,                     # dh, dc and strides
+            ptr, ptr, i64, i32, ptr]                # d_gates dc_prev rows ...
+        lib.lstm_cell_bwd.restype = i32
         _lib = lib
     return _lib
 

@@ -102,24 +102,30 @@ def no_host_sync():
 
 
 def _launch_counts() -> tuple:
-    """The kernels' launch counts: forward, backward, and by shape."""
+    """The kernels' launch counts: the ST kernels' forward, backward and
+    by shape, and the LSTM kernels' (``modules.lstm_counts``)."""
+    from attend_infer_repeat_torch.models import modules
     from attend_infer_repeat_torch.ops import st_kernel
 
     return (st_kernel.launches, st_kernel.bwd_launches,
-            collections.Counter(st_kernel.shape_launches))
+            collections.Counter(st_kernel.shape_launches),
+            collections.Counter(modules.lstm_counts))
 
 
 def _add_launches(counts: tuple, sign: int = 1) -> None:
     """Add ``counts`` (as ``_launch_counts`` gives them) to the kernels'
     launch counts, or take them away (``sign=-1``)."""
+    from attend_infer_repeat_torch.models import modules
     from attend_infer_repeat_torch.ops import st_kernel
 
     st_kernel.launches += sign * counts[0]
     st_kernel.bwd_launches += sign * counts[1]
-    if sign > 0:
-        st_kernel.shape_launches.update(counts[2])
-    else:
-        st_kernel.shape_launches.subtract(counts[2])
+    for total, part in ((st_kernel.shape_launches, counts[2]),
+                        (modules.lstm_counts, counts[3])):
+        if sign > 0:
+            total.update(part)
+        else:
+            total.subtract(part)
 
 
 class Graph:
@@ -157,7 +163,7 @@ class Graph:
             finally:
                 after = _launch_counts()
                 captured = (after[0] - counts[0], after[1] - counts[1],
-                            after[2] - counts[2])
+                            after[2] - counts[2], after[3] - counts[3])
                 _add_launches(captured, sign=-1)
         self.per_replay = captured
         self.pool_bytes = self._reserved() - reserved

@@ -29,6 +29,14 @@ Phases, in order (any failure raises and exits non-zero):
    carry, at the serve shape (N = 8192) and the ``canonical_fast`` and
    ``crowded`` step shapes, and on ``WINDOW_CASES``; each timed beside
    its plain version, the unfused ops and its bound (``accumulate_work``);
+3d. the LSTM cell's pointwise kernels (``csrc/lstm_cell.cu``) against
+   their plain twins, bit for bit, at the main paths' rows of 256 hidden
+   units (``LSTM_ROWS``), with ``c_prev`` a row-strided slot and
+   contiguous, the backward with both cotangents, ``dh`` absent and
+   ``dc`` absent; each timed beside the unfused ops (autograd's backward
+   of them), PyTorch's own fused cell (``aten._thnn_fused_lstm_cell``
+   and its backward, whose differing bits are counted, not held) and
+   its bound (``lstm_work``);
 4. the serving slice: canvas synthesis, serving requests through
    ``make_infer_fn`` for the ``serving`` preset and the ``canonical_fast``
    model, ``make_generate_fn``, all through their CUDA graphs; launch
@@ -41,7 +49,8 @@ Phases, in order (any failure raises and exits non-zero):
    step's CUDA graph from the same state, held bit-equal and both timed,
    then one eager ``make_eval_step``; launch counts read around that run
    (per step: 1 synthesis paste, 6 forward, 6 backward launches; the
-   preset's remat ``save_st`` recomputes no kernel);
+   preset's remat ``save_st`` recomputes no ST kernel; 6 forward and 3
+   backward LSTM launches, the forward recomputed);
 5b. one more eager step with every kernel call's inputs recorded; each
    kernel against plain (the fused paste against the unfused ops) and
    timed on the windows, images and cotangents that the step really
@@ -149,7 +158,10 @@ Phases, in order (any failure raises and exits non-zero):
 9. a ``kernels`` JSON line (``st_gather``, ``st_gather_accumulate`` and
    ``st_gather_bwd``: each one's launches in the phases that run the
    program, 4 to 8 without 5b, 6, 7c and 8b, counted by shape, and its
-   launches by shape in phases 7e and 8), then the
+   launches by shape in phases 7e and 8; ``lstm_cell`` and
+   ``lstm_cell_bwd``: their launches in the same phases, from
+   ``modules.lstm_counts`` set to 0 before phase 4, and phase 3d's
+   rows), then the
    last line
    ``{"ok": true, "device": {...}}``.
 
@@ -203,6 +215,13 @@ BWD_TOL = (1e-5, 1e-4)
 # a bf16 rounding.  The gradient limits were 1e-4 and 1e-2; measured on an
 # H100 3.78e-7 and 2.66e-4, so they are tightened to about twice that.
 STEP_LIMITS = {"canonical": (1e-6, 1e-6), "canonical_fast": (0.0, 5e-4)}
+
+# The LSTM cell's rows on the main paths, at its hidden width: the
+# canonical_fast and crowded train batch, k = 5 particles of it
+# (iwae_trained, SQAIR), a bulk request.
+LSTM_ROWS = (N_TRAIN, 5 * N_TRAIN, N_SERVE)
+LSTM_HIDDEN = 256
+L2_BYTES = 50 * 2 ** 20     # the H100's L2: timed inputs cycle past it
 
 # Memory rate (bytes/s) and f32 CUDA-core peak (FLOP/s) of the H100 SXM
 # (NVIDIA data sheet, dense, at the full power limit).
@@ -618,6 +637,136 @@ def accumulate_phase(st_kernel, invert_where, bw, f32_peak):
             flush=True)
         rows.append(row)
     return rows
+
+
+def lstm_inputs(rows, hidden, gen, slots=3):
+    """One set of the LSTM kernels' inputs: ``a`` and ``b`` ``(rows,
+    4H)``, ``c_prev`` a slot of a ``(rows, slots, H)`` state (row-strided,
+    as SQAIR passes it), and the cotangents ``dh`` and ``dc``."""
+    def randn(*shape):
+        return 3.0 * torch.randn(shape, generator=gen, device="cuda")
+
+    return (randn(rows, 4 * hidden), randn(rows, 4 * hidden),
+            randn(rows, slots, hidden)[:, 1], randn(rows, hidden),
+            randn(rows, hidden))
+
+
+def lstm_work(rows, hidden, backward):
+    """Bytes the LSTM kernels must move: the forward reads ``a``, ``b``
+    and ``c_prev`` and writes ``c`` and ``h``; the backward reads ``a``,
+    ``b``, ``c_prev``, ``dh`` and ``dc`` and writes ``d_gates`` and
+    ``dc_prev``.  Their ~30 flops a unit take under 1 us at the f32 peak
+    at these shapes, so the bytes bound them."""
+    return 4 * rows * hidden * (8 + 3 + 4 + 1 if backward else 8 + 1 + 2)
+
+
+def library_lstm(a, b, c_prev):
+    """PyTorch's own fused LSTM cell (``nn.LSTMCell``'s kernel on CUDA,
+    gates i, f, g, o), timed and compared, never used by the port:
+    ``(c, h, workspace)``."""
+    h, c, workspace = torch.ops.aten._thnn_fused_lstm_cell(a, b, c_prev)
+    return c, h, workspace
+
+
+def library_lstm_bwd(dh, dc, c_prev, c, workspace):
+    """Its backward: ``(d_gates, dc_prev)``."""
+    bwd = torch.ops.aten._thnn_fused_lstm_cell_backward_impl
+    d_gates, dc_prev, _ = bwd(dh, dc, c_prev, c, workspace, False)
+    return d_gates, dc_prev
+
+
+def check_lstm(lstm_kernel, rows, a, b, slot, dh, dc):
+    """Both LSTM kernels against their plain twins with ``c_prev`` a
+    row-strided slot and contiguous, the backward with both cotangents
+    and with either absent; raises on any differing bit.  Returns the
+    bits in which PyTorch's fused cell differs from the twins."""
+    for c_prev in (slot, slot.contiguous()):
+        where = "strided" if c_prev is slot else "contiguous"
+        got = lstm_kernel.lstm_cell_cuda(a, b, c_prev)
+        want = lstm_kernel.lstm_cell_plain(a, b, c_prev)
+        for cots in ((dh, dc), (None, dc), (dh, None)):
+            got += lstm_kernel.lstm_cell_bwd_cuda(a, b, c_prev, *cots)
+            want += lstm_kernel.lstm_cell_bwd_plain(a, b, c_prev, *cots)
+        differ = [bits_differ(g, w) for g, w in zip(got, want)]
+        if any(differ):
+            raise AssertionError(
+                f"LSTM kernels at {rows} rows, c_prev {where}: bits differ "
+                f"from the plain twins in (c, h, then d_gates and dc_prev "
+                f"with both cotangents, no dh, no dc) {differ}")
+    c_prev = slot.contiguous()
+    c, h, workspace = library_lstm(a, b, c_prev)
+    lib = (c, h, *library_lstm_bwd(dh, dc, c_prev, c, workspace))
+    want = (*lstm_kernel.lstm_cell_plain(a, b, c_prev),
+            *lstm_kernel.lstm_cell_bwd_plain(a, b, c_prev, dh, dc))
+    return {name: bits_differ(g, w) for name, g, w in
+            zip(("c", "h", "d_gates", "dc_prev"), lib, want)}
+
+
+def lstm_phase(bw, f32_peak):
+    """The LSTM kernels against their plain twins at ``LSTM_ROWS``, bit
+    for bit, and timed on input sets cycled past the L2, each beside the
+    unfused ops (forward, and autograd's backward of them), PyTorch's
+    fused cell and the bytes bound.  Returns the forward and backward
+    rows."""
+    from attend_infer_repeat_torch.ops import lstm_kernel
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    hidden = LSTM_HIDDEN
+    fwd_rows, bwd_rows = [], []
+    for rows in LSTM_ROWS:
+        first = lstm_inputs(rows, hidden, gen)
+        lib_bits = check_lstm(lstm_kernel, rows, *first)
+        fwd_bytes = lstm_work(rows, hidden, backward=False)
+        bwd_bytes = lstm_work(rows, hidden, backward=True)
+        n_sets = max(2, -(-3 * L2_BYTES // fwd_bytes))
+        sets = [first] + [lstm_inputs(rows, hidden, gen)
+                          for _ in range(n_sets - 1)]
+        sets = [(a, b, slot.contiguous(), dh, dc)
+                for a, b, slot, dh, dc in sets]
+        lib_out = [library_lstm(*s[:3]) for s in sets]
+        unfused = []
+        for a, b, c_prev, dh, dc in sets:
+            a, b, c_prev = (t.detach().requires_grad_()
+                            for t in (a, b, c_prev))
+            c, h = lstm_kernel.lstm_cell_plain(a, b, c_prev)
+            unfused.append(functools.partial(
+                torch.autograd.grad, (c, h), (a, b, c_prev), (dc, dh),
+                retain_graph=True))
+        turn = iter(range(10 ** 9))
+
+        def cycle(fn):
+            return lambda: fn(next(turn) % n_sets)
+
+        fwd = {"case": f"lstm forward {rows}x{hidden}", "n": rows,
+               "bits_differ": 0, "library_bits_differ": lib_bits}
+        fwd.update(timing(
+            cycle(lambda i: lstm_kernel.lstm_cell_cuda(*sets[i][:3])),
+            cycle(lambda i: lstm_kernel.lstm_cell_plain(*sets[i][:3])),
+            cycle(lambda i: library_lstm(*sets[i][:3])),
+            fwd_bytes, 0, bw, f32_peak))
+        bwd = {"case": f"lstm backward {rows}x{hidden}", "n": rows,
+               "bits_differ": 0, "library_bits_differ": lib_bits}
+        bwd.update(timing(
+            cycle(lambda i: lstm_kernel.lstm_cell_bwd_cuda(*sets[i])),
+            cycle(lambda i: unfused[i]()),
+            cycle(lambda i: library_lstm_bwd(
+                *sets[i][3:], sets[i][2], *lib_out[i][::2])),
+            bwd_bytes, 0, bw, f32_peak))
+        for row, nbytes in ((fwd, fwd_bytes), (bwd, bwd_bytes)):
+            print(f"  {row['case']}: bit-equal to the plain twins; kernel "
+                  f"{row['ms'] * 1e3:.2f} us, unfused ops "
+                  f"{row['plain_ms'] * 1e3:.2f} us, torch fused cell "
+                  f"{row['library_ms'] * 1e3:.2f} us, bound "
+                  f"{row['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.3f} MB; "
+                  f"kernel {row['ms'] / row['bound_ms']:.2f}x); {n_sets} "
+                  f"input sets", flush=True)
+        print(f"  torch fused cell at {rows} rows: bits that differ from the "
+              f"unfused ops {lib_bits} of {rows * hidden} (c, h, dc_prev) "
+              f"and {4 * rows * hidden} (d_gates)", flush=True)
+        fwd_rows.append(fwd)
+        bwd_rows.append(bwd)
+        del sets, lib_out, unfused
+    return fwd_rows, bwd_rows
 
 
 def same_pattern(kernel, plain) -> bool:
@@ -1056,6 +1205,7 @@ def train_phase(air, st_kernel, smi, bank):
     and timed; then one eager ``make_eval_step``.  Returns the eager
     state and its step."""
     from attend_infer_repeat_torch.data import make_synth_fn
+    from attend_infer_repeat_torch.models import modules
     from attend_infer_repeat_torch.utils import debug_mode, graphs
 
     fast = air.get_config("canonical_fast")
@@ -1068,9 +1218,20 @@ def train_phase(air, st_kernel, smi, bank):
     start = {k: v.clone() for k, v in state.model.state_dict().items()}
     n_cells = fast.model.max_steps
     per_step = (1 + 2 * n_cells, 2 * n_cells)     # synthesis + gather/paste
+    # the LSTM's forward once a cell, again in remat's recompute
+    lstm_per_step = {"fused": 2 * n_cells, "fused_bwd": n_cells}
     warm, timed_steps = 3, 20
 
+    def lstm_launches(steps, extra=0):
+        got = modules.lstm_counts - lstm0
+        want = {k: steps * v for k, v in lstm_per_step.items()}
+        want["fused"] += extra
+        if got != want:
+            raise AssertionError(f"LSTM launches {dict(got)} after {steps} "
+                                 f"steps, expected {want}")
+
     st_kernel.launches = st_kernel.bwd_launches = 0
+    lstm0 = collections.Counter(modules.lstm_counts)
     with debug_mode(nans=False):
         for i in range(warm):
             state, m = step(state)
@@ -1093,6 +1254,7 @@ def train_phase(air, st_kernel, smi, bank):
     counts = (st_kernel.launches, st_kernel.bwd_launches)
     if counts != (n_steps * per_step[0], n_steps * per_step[1]):
         raise AssertionError(f"{n_steps} train steps: launches {counts}")
+    lstm_launches(n_steps)
     moved = max((v - start[k]).abs().max().item()
                 for k, v in state.model.state_dict().items())
     if not (moved > 0 and state.step == n_steps):
@@ -1100,7 +1262,7 @@ def train_phase(air, st_kernel, smi, bank):
     last = rows[-1]
     print(f"  {n_steps} eager train steps (canonical_fast, batch {N_TRAIN}): "
           f"{per_step[0]} forward and {per_step[1]} backward launches per "
-          f"step; last loss {last['loss'].item():.1f}, elbo "
+          f"step, LSTM {lstm_per_step}; last loss {last['loss'].item():.1f}, elbo "
           f"{last['elbo'].item():.2f}, grad_norm "
           f"{last['grad_norm'].item():.1f}; parameters moved up to "
           f"{moved:.3g}", flush=True)
@@ -1124,6 +1286,7 @@ def train_phase(air, st_kernel, smi, bank):
     if counts != ((2 * n_steps + graphs.WARMUP) * per_step[0],
                   (2 * n_steps + graphs.WARMUP) * per_step[1]):
         raise AssertionError(f"graphed train steps: launches {counts}")
+    lstm_launches(2 * n_steps + graphs.WARMUP)
     (entry,) = graphed_step.graphs.values()
     print(f"  the same {n_steps} steps through make_train_step's CUDA graph "
           f"(capture at the first call, after {graphs.WARMUP} warm-up "
@@ -1149,6 +1312,7 @@ def train_phase(air, st_kernel, smi, bank):
                   + 2 * n_cells,
                   (2 * n_steps + graphs.WARMUP) * per_step[1]):
         raise AssertionError(f"eval step: launches {counts}")
+    lstm_launches(2 * n_steps + graphs.WARMUP, extra=n_cells)
     print(f"  eval step (eager): count accuracy "
           f"{metrics['count_accuracy_mode'].item():.4f} (mode, random "
           f"weights), parameters unchanged", flush=True)
@@ -2751,20 +2915,33 @@ def main() -> int:
           flush=True)
     acc_rows = accumulate_phase(st_kernel, invert_where, bw, f32_peak)
 
-    # each kernel's launches in the phases that run the program (4, 5, 5c,
-    # 5d, 7, 7b, 7d, 7e and 8; not the checks and timings of 3-3c, 5b, 6,
-    # 7c and 8b), from the launches by shape
-    phase_launches = collections.Counter()
+    print("[3d] the LSTM kernels against their plain twins, bit for bit",
+          flush=True)
+    lstm_rows, lstm_bwd_rows = lstm_phase(bw, f32_peak)
 
-    def add_launches(shapes):
+    # each kernel's launches in the phases that run the program (4, 5, 5c,
+    # 5d, 7, 7b, 7d, 7e and 8; not the checks and timings of 3-3d, 5b, 6,
+    # 7c and 8b), from the ST kernels' launches by shape and the LSTM
+    # kernels' counts
+    from attend_infer_repeat_torch.models import modules
+    phase_launches = collections.Counter()
+    lstm_names = {"fused": "lstm_cell", "fused_bwd": "lstm_cell_bwd"}
+
+    def add_launches(shapes, lstm=None):
         for (kernel, *_), c in shapes.items():
             phase_launches[kernel] += c
+        for key, c in (lstm or {}).items():
+            phase_launches[lstm_names[key]] += c
 
     def counted(phase, *args):
         before = collections.Counter(st_kernel.shape_launches)
+        lstm = collections.Counter(modules.lstm_counts)
         out = phase(*args)
-        add_launches(st_kernel.shape_launches - before)
+        add_launches(st_kernel.shape_launches - before,
+                     modules.lstm_counts - lstm)
         return out
+
+    modules.lstm_counts.clear()
 
     print("[4] the serving slice", flush=True)
     counted(slice_phase, air, st_kernel, smi)
@@ -2807,15 +2984,17 @@ def main() -> int:
     print("[7e] the analysis tools: overlap characterization, overlap "
           "errors, supervised ceiling, IWAE k-sweep, CPU-card parity, "
           "ablation and probe runners", flush=True)
+    lstm = collections.Counter(modules.lstm_counts)
     analysis_shapes, analysis_rows = analysis_phase(air, st_kernel, smi, bw,
                                                     f32_peak)
-    add_launches(analysis_shapes)
+    add_launches(analysis_shapes, modules.lstm_counts - lstm)
 
     print(f"[8] every other training preset at full width: K = {PRESET_K} "
           f"steps graphed against eager", flush=True)
+    lstm = collections.Counter(modules.lstm_counts)
     preset_shapes, (crowded, crowded_step) = preset_phase(air, st_kernel,
                                                            smi)
-    add_launches(preset_shapes)
+    add_launches(preset_shapes, modules.lstm_counts - lstm)
 
     print("[8b] both kernels on one crowded train step's own inputs",
           flush=True)
@@ -2858,6 +3037,25 @@ def main() -> int:
 
     fwd_rows = rows + step_rows + crowded_rows + analysis_rows
     fused = [r.get("key", ("",))[0] == ACC_KEY for r in fwd_rows]
+    def lstm_line(name, rows):
+        head = next(r for r in rows if r["n"] == 5 * N_TRAIN)
+        keys = ("case", "n", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "bits_differ", "library_bits_differ")
+        if not phase_launches[name]:
+            raise AssertionError(f"the main paths launched no {name}")
+        return {
+            "name": name, "route": "cuda",
+            "source": "attend_infer_repeat_torch/csrc/lstm_cell.cu",
+            "replaces": "none: XLA fuses models/modules.py LSTMCell's "
+                        "elementwise ops",
+            "launches": phase_launches[name],
+            "bits_differ": max(r["bits_differ"] for r in rows),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": head["case"],
+            "shapes": [{k: r[k] for k in keys} for r in rows],
+        }
+
     kernels = [
         kernel_line("st_gather", "st_gather.cu", 54,
                     [r for r, f in zip(fwd_rows, fused) if not f],
@@ -2869,6 +3067,8 @@ def main() -> int:
         kernel_line("st_gather_bwd", "st_gather_bwd.cu", 155,
                     bwd_rows + step_bwd_rows + crowded_bwd_rows,
                     lambda c, n: c.startswith("step paste bwd")),
+        lstm_line("lstm_cell", lstm_rows),
+        lstm_line("lstm_cell_bwd", lstm_bwd_rows),
     ]
     print("[9] kernels", flush=True)
     print(f"  total {time.perf_counter() - t0:.1f} s", flush=True)

@@ -110,28 +110,35 @@ def test_package_exports_resolve():
 
 def test_graph_counts_launches_by_shape(monkeypatch):
     """A graph's capture adds no launch, since it executes nothing; each
-    replay adds the launches of one captured run, by shape too."""
+    replay adds the launches of one captured run, by shape too, and the
+    LSTM kernels' (``modules.lstm_counts``) as the ST kernels'."""
+    from attend_infer_repeat_torch.models import modules
     from attend_infer_repeat_torch.ops import st_kernel
 
     key = ("st_gather_bwd", 4, 20, 20, 50, 50)
     monkeypatch.setattr(st_kernel, "launches", 0)
     monkeypatch.setattr(st_kernel, "bwd_launches", 0)
     monkeypatch.setattr(st_kernel, "shape_launches", collections.Counter())
+    monkeypatch.setattr(modules, "lstm_counts", collections.Counter())
 
-    def body():                     # counts as the kernel's wrapper does
+    def body():                     # counts as the kernels' wrappers do
         st_kernel.bwd_launches += 1
         st_kernel.shape_launches[key] += 1
+        modules.lstm_counts["fused"] += 1
 
     graph = PythonAtCaptureOnly(body, "cpu")
-    assert graph.per_replay == (0, 1, collections.Counter({key: 1}))
+    assert graph.per_replay == (0, 1, collections.Counter({key: 1}),
+                                collections.Counter({"fused": 1}))
     assert st_kernel.bwd_launches == st_kernel.shape_launches[key] == \
-        graphs.WARMUP
+        modules.lstm_counts["fused"] == graphs.WARMUP
     graph.launch()
     graph.launch()
     assert st_kernel.bwd_launches == st_kernel.shape_launches[key] == \
-        graphs.WARMUP + 2
+        modules.lstm_counts["fused"] == graphs.WARMUP + 2
     assert st_kernel.launches == 0 and +st_kernel.shape_launches == \
         collections.Counter({key: graphs.WARMUP + 2})
+    assert +modules.lstm_counts == collections.Counter(
+        {"fused": graphs.WARMUP + 2})
 
 
 def test_only_the_graph_layer_chooses_eager():
