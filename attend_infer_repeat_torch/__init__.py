@@ -43,6 +43,8 @@ _EXPORTS = {
     "AIRStepOutput": "models",
     "SQAIRModel": "models",
     "SequenceConfig": "configs",
+    "SpaceModel": "models",
+    "SpaceConfig": "configs",
     "make_infer_fn": "serving",
     "make_generate_fn": "serving",
     "load_digit_bank": "data",

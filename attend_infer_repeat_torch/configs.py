@@ -183,6 +183,58 @@ class SequenceConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SpaceConfig:
+    """SPACE (``models/space.py``): the foreground's grid of object cells,
+    the background's mixture, their widths, and the scenes it trains on
+    (``data.synth.synthesize_scenes``; their digits' count, size and scale
+    come from ``Config.data``).  The port's own section, outside
+    ``Config`` as ``SequenceConfig`` is.  A conv's width is its output
+    channels; every conv but a head is followed by GroupNorm
+    (``group_channels`` a group) and CELU."""
+
+    grid: int = 16                        # G: G × G object cells
+    channels: int = 3                     # the scene's colour channels
+    glimpse_size: Tuple[int, int] = (32, 32)
+    z_what: int = 32
+    group_channels: int = 8
+    # the image encoder: (width, kernel, stride, padding) of each conv
+    fg_encoder: Tuple[Tuple[int, int, int, int], ...] = (
+        (16, 4, 2, 1), (32, 4, 2, 1), (64, 4, 2, 1), (128, 3, 1, 1),
+        (256, 3, 1, 1), (128, 1, 1, 0))
+    lateral: Tuple[int, ...] = (128, 128)  # 3×3 convs of the lateral context
+    # the glimpse encoder, as the image encoder, down to 1 × 1
+    glimpse_encoder: Tuple[Tuple[int, int, int, int], ...] = (
+        (16, 3, 1, 1), (32, 4, 2, 1), (32, 3, 1, 1), (64, 4, 2, 1),
+        (128, 4, 2, 1), (256, 4, 1, 0))
+    # the glimpse decoder: a 1 × 1 conv to the first width, then a block
+    # (3 × 3 conv, PixelShuffle(2), GroupNorm, CELU) to each later one
+    glimpse_decoder: Tuple[int, ...] = (256, 128, 128, 64, 32, 16)
+    glimpse_decoder_out: int = 16         # a 3 × 3 conv before the head
+    tau: float = 2.5                      # the relaxed presence's temperature
+    # z_scale's prior mean, annealed linearly over [start, end]
+    z_scale_mean: Tuple[float, float] = (-1.0, -2.0)
+    z_scale_anneal: Tuple[int, int] = (10_000, 20_000)
+    z_scale_std: float = 0.1
+    importance: float = 100.0             # γ = α · importance · σ(−z_depth)
+    # the background
+    components: int = 5                   # K
+    bg_encoder: Tuple[int, ...] = (32, 32, 64, 64)   # 4 × 4, stride 2, pad 1
+    bg_embed: int = 128
+    mask_hidden: int = 64                 # both K-step LSTMs
+    z_mask: int = 32
+    z_comp: int = 32
+    comp_prior_hidden: int = 64
+    # the mask and component decoders: as the glimpse decoder's
+    bg_decoder: Tuple[int, ...] = (256, 256, 128, 128, 64, 64, 32, 16)
+    fg_std: float = 0.15
+    bg_std: float = 0.15
+    # the scenes: the horizon's row and the wall's split column, each drawn
+    # uniformly from its inclusive range
+    horizon: Tuple[int, int] = (40, 88)
+    wall_split: Tuple[int, int] = (32, 96)
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = ModelConfig()
     prior: PriorAnnealConfig = PriorAnnealConfig()

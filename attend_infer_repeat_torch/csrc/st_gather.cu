@@ -242,11 +242,14 @@ struct Vec<1> {
   __device__ static void store(float* p, const float* v) { *p = v[0]; }
 };
 
-template <bool kBf16, int V, int kThreads>
+// kIndexed: example b reads image src_index[b] of img, not image b (the
+// indexed gather: many windows of one image, with no copy of the image
+// per window).  Without it the kernel reads no index.
+template <bool kBf16, int V, int kThreads, bool kIndexed>
 __global__ void __launch_bounds__(kThreads)
 st_gather_kernel(const float* __restrict__ img, const float* __restrict__ zw,
                  float* __restrict__ out, int in_h, int in_w, int out_h,
-                 int out_w, bool vec) {
+                 int out_w, bool vec, const int* __restrict__ src_index) {
   extern __shared__ Taps taps[];             // out_h rows, then out_w columns
   const int tid = threadIdx.x;
   const int64_t b = blockIdx.x;
@@ -264,7 +267,9 @@ st_gather_kernel(const float* __restrict__ img, const float* __restrict__ zw,
     taps[r] = axis_taps(p, row ? in_h : in_w, kBf16);
     nan_col |= !row && p != p;
   }
-  const float* __restrict__ src = img + b * in_h * in_w;
+  int64_t image = b;
+  if constexpr (kIndexed) image = __ldg(src_index + b);
+  const float* __restrict__ src = img + image * in_h * in_w;
   float* __restrict__ dst = out + b * out_h * out_w;
   const bool bad = any_nonfinite<kBf16, kThreads>(src, in_h * in_w, vec);
   const bool any_nan_col = __syncthreads_or(nan_col);
@@ -308,9 +313,10 @@ st_gather_kernel(const float* __restrict__ img, const float* __restrict__ zw,
   }
 }
 
-template <bool kBf16, int V>
+template <bool kBf16, int V, bool kIndexed>
 int launch(const float* img, const float* zw, float* out, long long n,
-           int in_h, int in_w, int out_h, int out_w, cudaStream_t stream) {
+           int in_h, int in_w, int out_h, int out_w, const int* src_index,
+           cudaStream_t stream) {
   // the taps, then gather_nonfinite's counts
   const size_t smem = sizeof(Taps) * static_cast<size_t>(out_h + out_w)
       + sizeof(int) * static_cast<size_t>(in_w + 2 * out_h);
@@ -318,26 +324,29 @@ int launch(const float* img, const float* zw, float* out, long long n,
   const bool vec = reinterpret_cast<uintptr_t>(img) % 16 == 0
       && (in_h * in_w) % 4 == 0;
   if (out_h * out_w <= kSmallOutput) {
-    st_gather_kernel<kBf16, V, 64><<<blocks, 64, smem, stream>>>(
-        img, zw, out, in_h, in_w, out_h, out_w, vec);
+    st_gather_kernel<kBf16, V, 64, kIndexed><<<blocks, 64, smem, stream>>>(
+        img, zw, out, in_h, in_w, out_h, out_w, vec, src_index);
   } else {
-    st_gather_kernel<kBf16, V, 128><<<blocks, 128, smem, stream>>>(
-        img, zw, out, in_h, in_w, out_h, out_w, vec);
+    st_gather_kernel<kBf16, V, 128, kIndexed><<<blocks, 128, smem, stream>>>(
+        img, zw, out, in_h, in_w, out_h, out_w, vec, src_index);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kBf16>
+template <bool kBf16, bool kIndexed = false>
 int launch_mode(const float* img, const float* zw, float* out, long long n,
                 int in_h, int in_w, int out_h, int out_w,
-                cudaStream_t stream) {
+                cudaStream_t stream, const int* src_index = nullptr) {
   if (out_w % 4 == 0) {
-    return launch<kBf16, 4>(img, zw, out, n, in_h, in_w, out_h, out_w, stream);
+    return launch<kBf16, 4, kIndexed>(img, zw, out, n, in_h, in_w, out_h,
+                                      out_w, src_index, stream);
   }
   if (out_w % 2 == 0) {
-    return launch<kBf16, 2>(img, zw, out, n, in_h, in_w, out_h, out_w, stream);
+    return launch<kBf16, 2, kIndexed>(img, zw, out, n, in_h, in_w, out_h,
+                                      out_w, src_index, stream);
   }
-  return launch<kBf16, 1>(img, zw, out, n, in_h, in_w, out_h, out_w, stream);
+  return launch<kBf16, 1, kIndexed>(img, zw, out, n, in_h, in_w, out_h, out_w,
+                                    src_index, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -621,6 +630,23 @@ extern "C" int st_gather(const void* img, const void* zw, void* out,
   auto s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_mode<true>(i, z, o, n, in_h, in_w, out_h, out_w, s)
               : launch_mode<false>(i, z, o, n, in_h, in_w, out_h, out_w, s);
+}
+
+// The indexed gather, f32 mode: img (m, in_h, in_w), src_index (n) int32
+// image indices in [0, m), zw (n, 4) and out (n, out_h, out_w):
+// contiguous device pointers, n < 2^31.  Output n is the gather of image
+// src_index[n] at window n, bit for bit what st_gather gives on a copy of
+// that image.  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() after the launch.
+extern "C" int st_gather_indexed(const void* img, const void* src_index,
+                                 const void* zw, void* out, long long n,
+                                 int in_h, int in_w, int out_h, int out_w,
+                                 void* stream) {
+  if (n <= 0 || out_h <= 0 || out_w <= 0) return 0;
+  return launch_mode<false, true>(
+      static_cast<const float*>(img), static_cast<const float*>(zw),
+      static_cast<float*>(out), n, in_h, in_w, out_h, out_w,
+      static_cast<cudaStream_t>(stream), static_cast<const int*>(src_index));
 }
 
 // canvas_in and canvas_out (n, out_h, out_w), f32 or (carry_bf16) bf16;

@@ -353,13 +353,15 @@ struct Col {
   int off;                                   // q0 - first touched column
 };
 
-template <bool kBf16>
+// kIndexed (with no gimg): example b's image is src_index[b] of img, as
+// in the indexed gather.  Without it the kernel reads no index.
+template <bool kBf16, bool kIndexed>
 __global__ void __launch_bounds__(kThreads)
 st_gather_bwd_kernel(const float* __restrict__ img,
                      const float* __restrict__ zw,
                      const float* __restrict__ g, float* __restrict__ gimg,
                      float* __restrict__ gzw, int in_h, int in_w, int out_h,
-                     int out_w, int vec) {
+                     int out_w, int vec, const int* __restrict__ src_index) {
   extern __shared__ float4 smem4[];
   const bool with_img = gimg != nullptr;
   const Layout lay(in_h, in_w, out_h, out_w, with_img);
@@ -387,7 +389,9 @@ st_gather_bwd_kernel(const float* __restrict__ img,
     }
   }
   __syncthreads();
-  const float* __restrict__ src = img + b * in_h * in_w;
+  int64_t image = b;
+  if constexpr (kIndexed) image = __ldg(src_index + b);
+  const float* __restrict__ src = img + image * in_h * in_w;
   const float* __restrict__ gg = g + b * out_h * out_w;
   const bool bad =
       any_nonfinite<kBf16, kThreads>(src, in_h * in_w, vec & 1) ||
@@ -634,14 +638,15 @@ st_gather_bwd_kernel(const float* __restrict__ img,
 
 // The dense design (one pass over every output pixel, then scatter
 // passes), for gathers: see the header.
-template <bool kBf16>
+template <bool kBf16, bool kIndexed>
 __global__ void __launch_bounds__(kThreads)
 st_gather_bwd_dense_kernel(const float* __restrict__ img,
                            const float* __restrict__ zw,
                            const float* __restrict__ g,
                            float* __restrict__ gimg,
                            float* __restrict__ gzw, int in_h, int in_w,
-                           int out_h, int out_w, int vec) {
+                           int out_h, int out_w, int vec,
+                           const int* __restrict__ src_index) {
   extern __shared__ float smem[];
   const int n_taps = out_h + out_w;
   const int n_out = out_h * out_w;
@@ -656,7 +661,9 @@ st_gather_bwd_dense_kernel(const float* __restrict__ img,
   const int tid = threadIdx.x;
   const int64_t b = blockIdx.x;
   const float* __restrict__ z = zw + 4 * b;          // sx, sy, tx, ty
-  const float* __restrict__ src = img + b * in_h * in_w;
+  int64_t image = b;
+  if constexpr (kIndexed) image = __ldg(src_index + b);
+  const float* __restrict__ src = img + image * in_h * in_w;
   const float* __restrict__ gg = g + b * n_out;
   if (tid == 0) {
     nan_row = 0;
@@ -820,10 +827,10 @@ long long dense_smem_bytes(int in_h, int in_w, int out_h, int out_w,
   return bytes;
 }
 
-template <bool kBf16>
+template <bool kBf16, bool kIndexed = false>
 int launch(const float* img, const float* zw, const float* g, float* gimg,
            float* gzw, long long n, int in_h, int in_w, int out_h, int out_w,
-           cudaStream_t stream) {
+           cudaStream_t stream, const int* src_index = nullptr) {
   const bool dense = out_h * out_w <= in_h * in_w;
   const long long taps_bytes = dense
       ? static_cast<long long>(sizeof(TapsDp)) * (out_h + out_w)
@@ -844,8 +851,8 @@ int launch(const float* img, const float* zw, const float* g, float* gimg,
   const bool vec_g =
       reinterpret_cast<uintptr_t>(g) % 16 == 0 && (out_h * out_w) % 4 == 0;
   const int vec = (vec_img ? 1 : 0) | (vec_g ? 2 : 0);
-  const auto kernel = dense ? st_gather_bwd_dense_kernel<kBf16>
-                            : st_gather_bwd_kernel<kBf16>;
+  const auto kernel = dense ? st_gather_bwd_dense_kernel<kBf16, kIndexed>
+                            : st_gather_bwd_kernel<kBf16, kIndexed>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -856,7 +863,8 @@ int launch(const float* img, const float* zw, const float* g, float* gimg,
     }
   }
   kernel<<<static_cast<unsigned>(n), kThreads, static_cast<size_t>(smem),
-           stream>>>(img, zw, g, gimg, gzw, in_h, in_w, out_h, out_w, vec);
+           stream>>>(img, zw, g, gimg, gzw, in_h, in_w, out_h, out_w, vec,
+                     src_index);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -882,4 +890,23 @@ extern "C" int st_gather_bwd(const void* img, const void* zw, const void* g,
   return bf16 ? launch<true>(i, z, gg, gi, gz, n, in_h, in_w, out_h, out_w, s)
               : launch<false>(i, z, gg, gi, gz, n, in_h, in_w, out_h, out_w,
                               s);
+}
+
+// The indexed gather's backward, f32 mode, g_zw alone (the images are
+// data): img (m, in_h, in_w), src_index (n) int32 image indices in
+// [0, m), zw (n, 4), g (n, out_h, out_w) in; gzw (n, 4) out: contiguous
+// float32 device pointers, n < 2^31.  Bit for bit what st_gather_bwd
+// gives on a copy of each window's image.  Launches on `stream`, does not
+// synchronise, and returns the first CUDA error.
+extern "C" int st_gather_bwd_indexed(const void* img, const void* src_index,
+                                     const void* zw, const void* g,
+                                     void* gzw, long long n, int in_h,
+                                     int in_w, int out_h, int out_w,
+                                     void* stream) {
+  if (n <= 0 || out_h <= 0 || out_w <= 0) return 0;
+  return launch<false, true>(
+      static_cast<const float*>(img), static_cast<const float*>(zw),
+      static_cast<const float*>(g), nullptr, static_cast<float*>(gzw), n,
+      in_h, in_w, out_h, out_w, static_cast<cudaStream_t>(stream),
+      static_cast<const int*>(src_index));
 }

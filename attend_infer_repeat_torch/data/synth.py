@@ -23,6 +23,10 @@ eager where ``utils.graphs.eager`` holds.
 (``models/sqair.py``): each digit of a sequence moves at a constant
 velocity, bounces off the canvas's edges and enters at a frame of its
 own; every frame of every digit is pasted in one call.
+
+``synthesize_scenes`` makes RGB scenes for SPACE (``models/space.py``):
+three flat colours split by a horizon and a wall's split, then coloured
+digits composited back to front.
 """
 
 from __future__ import annotations
@@ -33,7 +37,11 @@ from typing import Dict, Optional
 import torch
 
 from attend_infer_repeat_torch import resolve_device
-from attend_infer_repeat_torch.configs import DataConfig, SequenceConfig
+from attend_infer_repeat_torch.configs import (
+    DataConfig,
+    SequenceConfig,
+    SpaceConfig,
+)
 from attend_infer_repeat_torch.ops.spatial_transformer import st_paste
 from attend_infer_repeat_torch.utils import graphs
 from attend_infer_repeat_torch.utils.profiling import span
@@ -272,3 +280,75 @@ def synthesize_sequences(digit_bank: torch.Tensor, cfg: DataConfig,
         imgs = torch.clamp(torch.sum(pastes * present[..., None, None],
                                      dim=1), 0.0, 1.0)
         return imgs, draws["nums"].to(torch.int32)
+
+
+def sample_scene_draws(cfg: DataConfig, space: SpaceConfig, batch: int,
+                       n_bank: int,
+                       generator: Optional[torch.Generator] = None,
+                       device=None) -> Dict[str, torch.Tensor]:
+    """The random numbers one batch of scenes consumes, drawn from
+    ``generator`` in this order: the count, the horizon's row, the wall's
+    split column, the three background colours, then each slot's digit,
+    scale, position (a fraction of the in-bounds range on each axis) and
+    colour."""
+    t_slots = max(cfg.max_digits, 1)
+    lo, hi = cfg.scale_range
+    c = space.channels
+    shape = (batch, t_slots)
+    kw = dict(generator=generator, device=device)
+    return {
+        "nums": torch.randint(cfg.min_digits, cfg.max_digits + 1, (batch,),
+                              **kw),
+        "horizon": torch.randint(space.horizon[0], space.horizon[1] + 1,
+                                 (batch,), **kw),
+        "split": torch.randint(space.wall_split[0], space.wall_split[1] + 1,
+                               (batch,), **kw),
+        "background": torch.rand((batch, 3, c), **kw),
+        "idx": torch.randint(0, n_bank, shape, **kw),
+        "scale": lo + (hi - lo) * torch.rand(shape, **kw),
+        "position": torch.rand(shape + (2,), **kw),
+        "colour": torch.rand(shape + (c,), **kw),
+    }
+
+
+def synthesize_scenes(digit_bank: torch.Tensor, cfg: DataConfig,
+                      space: SpaceConfig, batch: int,
+                      generator: Optional[torch.Generator] = None):
+    """``(scenes (batch, C, H, W) float32, nums (batch,) int32)``.
+
+    The background is three flat colours: the wall left of the split
+    column, the wall right of it, and the floor from the horizon's row
+    down.  A scene holds ``k ~ Uniform{min_digits .. max_digits}`` digits,
+    each at a uniform in-bounds position, of a uniform colour, with its
+    intensity as its alpha; slot 0 is the back, and each later slot is
+    composited over the scene so far (``x ← x · (1 − a) + a · colour``).
+    The random numbers are ``sample_scene_draws``' from ``generator``.
+    """
+    with span("data.scenes"):
+        ch, cw = cfg.canvas_size
+        dh, dw = cfg.digit_size
+        t_slots = max(cfg.max_digits, 1)
+        dev = digit_bank.device
+        d = sample_scene_draws(cfg, space, batch, digit_bank.shape[0],
+                               generator, dev)
+        rows = torch.arange(ch, device=dev)[None, None, :, None]
+        cols = torch.arange(cw, device=dev)[None, None, None, :]
+        wall = (rows < d["horizon"][:, None, None, None]).to(torch.float32)
+        left = (cols < d["split"][:, None, None, None]).to(torch.float32)
+        colour = d["background"][..., None, None]             # (B, 3, C, 1, 1)
+        imgs = wall * left * colour[:, 0] \
+            + wall * (1.0 - left) * colour[:, 1] \
+            + (1.0 - wall) * colour[:, 2]                        # (B, C, H, W)
+        s = d["scale"]
+        sx, sy = s * dw / cw, s * dh / ch
+        tx = (2.0 * d["position"][..., 0] - 1.0) * (1.0 - sx)
+        ty = (2.0 * d["position"][..., 1] - 1.0) * (1.0 - sy)
+        z_where = torch.stack([sx, sy, tx, ty], dim=-1)          # (B, S, 4)
+        present = (torch.arange(t_slots, device=dev)[None, :]
+                   < d["nums"][:, None]).to(torch.float32)
+        alpha = st_paste(digit_bank[d["idx"]], z_where, (ch, cw)) \
+            * present[..., None, None]                           # (B, S, H, W)
+        for j in range(t_slots):
+            a = alpha[:, j, None]
+            imgs = imgs * (1.0 - a) + a * d["colour"][:, j, :, None, None]
+        return imgs, d["nums"].to(torch.int32)

@@ -122,3 +122,24 @@ def bernoulli_log_prob(x, prob, eps: float = 1e-7) -> torch.Tensor:
     """Elementwise log Bernoulli(x; prob) with straight-through clipping."""
     p = clip_preserve(prob, eps, 1.0 - eps)
     return x * torch.log(p) + (1.0 - x) * torch.log1p(-p)
+
+
+def logit_relaxed_bernoulli_sample(logits: torch.Tensor, u: torch.Tensor,
+                                   temperature: float,
+                                   eps: float = 1e-6) -> torch.Tensor:
+    """A sample ``y`` of the logit-space relaxed Bernoulli (the binary
+    Concrete in logit space): ``y = (logits + log u − log(1 − u)) / τ``
+    for uniforms ``u``, clipped to ``[eps, 1 − eps]`` so that the logistic
+    noise stays finite.  ``sigmoid(y)`` is the relaxed presence."""
+    u = torch.clamp(u, eps, 1.0 - eps)
+    return (logits + torch.log(u) - torch.log1p(-u)) / temperature
+
+
+def logit_relaxed_bernoulli_log_prob(y: torch.Tensor, logits,
+                                     temperature: float) -> torch.Tensor:
+    """``log q(y) = log τ − τy + logits − 2·softplus(logits − τy)``, the
+    density of that sample (``torch.distributions.relaxed_bernoulli.
+    LogitRelaxedBernoulli(τ, logits=logits).log_prob(y)``)."""
+    diff = logits - temperature * y
+    return math.log(temperature) + diff \
+        - 2.0 * torch.nn.functional.softplus(diff)

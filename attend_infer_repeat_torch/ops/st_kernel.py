@@ -25,9 +25,18 @@ paste)`` in one pass (``st_gather_accumulate_kernel`` in
 ``st_gather_accumulate_plain`` is those ops, and ``STGatherAccumulate``
 its autograd glue, whose backward is the gather's backward kernel.
 
+The indexed gather takes many windows of one image with no copy of the
+image per window: given ``src (N,)`` int32, glimpse n reads image
+``src[n]`` of ``img (M, H, W)`` (``st_gather_cuda(..., src=src)``, float32
+mode), and its backward gives ``g_zw`` alone (the images are data; asking
+for ``g_img`` raises).  Without ``src`` every launch is the one-to-one
+gather it always was.
+
 ``launches`` and ``bwd_launches`` count kernel launches, and nothing
 else (a fused paste is a forward launch); ``shape_launches`` counts them
-by shape.
+by shape, an indexed launch under its own kernel name
+(``st_gather_indexed``, ``st_gather_bwd_indexed``, with N the windows
+and ``(H, W)`` an image's).
 """
 
 from __future__ import annotations
@@ -64,8 +73,9 @@ launches = 0
 #: Number of backward kernel launches since the count was last set to 0.
 bwd_launches = 0
 #: Launches of each kernel by ``(kernel, N, H, W, h, w)``, ``kernel``
-#: "st_gather", "st_gather_accumulate" or "st_gather_bwd", since the
-#: counter was last cleared.
+#: "st_gather", "st_gather_accumulate", "st_gather_bwd",
+#: "st_gather_indexed" or "st_gather_bwd_indexed", since the counter was
+#: last cleared.
 shape_launches: collections.Counter = collections.Counter()
 _lib = None
 
@@ -123,6 +133,15 @@ def _load():
             ctypes.c_longlong, i32, i32, i32, i32,  # n in_h in_w out_h out_w
             i32, ptr]                               # carry_bf16 stream
         lib.st_gather_accumulate.restype = i32
+        lib.st_gather_indexed.argtypes = [
+            ptr, ptr, ptr, ptr,                     # img src zw out
+            ctypes.c_longlong, i32, i32, i32, i32,  # n in_h in_w out_h out_w
+            ptr]                                    # stream
+        lib.st_gather_indexed.restype = i32
+        lib.st_gather_bwd_indexed.argtypes = [
+            ptr, ptr, ptr, ptr, ptr,                # img src zw g gzw
+            ctypes.c_longlong, i32, i32, i32, i32, ptr]
+        lib.st_gather_bwd_indexed.restype = i32
         i64 = ctypes.c_longlong
         lib.lstm_cell.argtypes = [
             ptr, ptr, ptr, i64,                     # a b c_prev its stride
@@ -162,14 +181,44 @@ def _check_cuda(name: str, **tensors) -> None:
         raise ValueError(f"{name} takes contiguous tensors")
 
 
+def _check_src(name: str, img: torch.Tensor, zw: torch.Tensor,
+               src: torch.Tensor, compute_dtype: str) -> None:
+    """The indexed launch's checks: ``img (M, H, W)``, ``zw (N, 4)`` and
+    ``src (N,)`` int32, contiguous on one CUDA device, float32 mode."""
+    if compute_dtype != "float32":
+        raise ValueError(f"{name} with src runs in float32 mode only")
+    if not (img.is_cuda and zw.is_cuda and src.is_cuda
+            and img.device == zw.device == src.device):
+        raise ValueError(f"{name} takes CUDA tensors on one device")
+    if img.dtype != torch.float32 or zw.dtype != torch.float32 \
+            or src.dtype != torch.int32:
+        raise TypeError(f"{name} takes float32 img and zw and int32 src, "
+                        f"got {img.dtype}, {zw.dtype}, {src.dtype}")
+    if img.dim() != 3 or zw.dim() != 2 or zw.shape[1] != 4 \
+            or tuple(src.shape) != (zw.shape[0],):
+        raise ValueError(f"want img (M, H, W), zw (N, 4) and src (N,), got "
+                         f"{tuple(img.shape)}, {tuple(zw.shape)} and "
+                         f"{tuple(src.shape)}")
+    if zw.shape[0] >= 2 ** 31:
+        raise ValueError(f"{name} takes N < 2**31 (one block each)")
+    if not (img.is_contiguous() and zw.is_contiguous()
+            and src.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
 def st_gather_cuda(img: torch.Tensor, zw: torch.Tensor, out_shape,
-                   compute_dtype: str = "float32") -> torch.Tensor:
+                   compute_dtype: str = "float32",
+                   src: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the kernel: ``img (N, H, W)``, ``zw (N, 4)`` → ``(N, h, w)``.
 
     Both inputs must be contiguous float32 CUDA tensors on one device.
+    With ``src (N,)`` int32 the gather is indexed: ``img (M, H, W)`` and
+    output n is the gather of ``img[src[n]]`` at ``zw[n]`` (float32 mode).
     Not differentiable by itself: ``STGather`` wraps it.
     """
     global launches
+    if src is not None:
+        return _st_gather_indexed(img, zw, src, out_shape, compute_dtype)
     bf16 = _check_compute_dtype(compute_dtype)
     _check_cuda("st_gather_cuda", img=img, zw=zw)
     n, in_h, in_w = img.shape
@@ -190,13 +239,40 @@ def st_gather_cuda(img: torch.Tensor, zw: torch.Tensor, out_shape,
     return out
 
 
+def _st_gather_indexed(img, zw, src, out_shape, compute_dtype):
+    global launches
+    _check_src("st_gather_cuda", img, zw, src, compute_dtype)
+    n, (_, in_h, in_w) = zw.shape[0], img.shape
+    out_h, out_w = (int(s) for s in out_shape)
+    out = torch.empty((n, out_h, out_w), dtype=torch.float32,
+                      device=img.device)
+    if n == 0 or out_h * out_w == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.st_gather_indexed(img.data_ptr(), src.data_ptr(),
+                                    zw.data_ptr(), out.data_ptr(), n, in_h,
+                                    in_w, out_h, out_w, stream)
+    if err:
+        raise RuntimeError(f"st_gather_indexed kernel launch failed: CUDA "
+                           f"error {err}")
+    launches += 1
+    shape_launches["st_gather_indexed", n, in_h, in_w, out_h, out_w] += 1
+    return out
+
+
 def st_gather_plain(img: torch.Tensor, zw: torch.Tensor, out_shape,
-                    compute_dtype: str = "float32") -> torch.Tensor:
+                    compute_dtype: str = "float32",
+                    src: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``W_y · img · W_xᵀ``.
 
     ``bfloat16`` mode rounds the weights, the pixels and the row-pass
     intermediate to bf16 as the kernel does, and accumulates in f32.
+    With ``src`` the images are ``img[src]``.
     """
+    if src is not None:
+        img = img[src.long()]
     bf16 = _check_compute_dtype(compute_dtype)
     w_y, w_x = st_weights(zw, out_shape, img.shape[-2:])
     if bf16:
@@ -209,16 +285,22 @@ def st_gather_plain(img: torch.Tensor, zw: torch.Tensor, out_shape,
 
 def st_gather_bwd_cuda(img: torch.Tensor, zw: torch.Tensor, g: torch.Tensor,
                        out_shape, compute_dtype: str = "float32",
-                       need_img: bool = True):
+                       need_img: bool = True,
+                       src: torch.Tensor | None = None):
     """Launch the backward kernel: the VJP of ``st_gather_cuda``.
 
     ``img (N, H, W)``, ``zw (N, 4)`` and the output cotangent
     ``g (N, h, w)`` → ``(g_img (N, H, W) or None, g_zw (N, 4))``, with
     ``g_zw`` ordered ``(d_sx, d_sy, d_tx, d_ty)``.  ``need_img=False``
     skips ``g_img`` (returned as None).  All three inputs must be
-    contiguous float32 CUDA tensors on one device.
+    contiguous float32 CUDA tensors on one device.  With ``src`` (the
+    indexed gather's, float32 mode) it gives ``(None, g_zw)``, and raises
+    if ``need_img``: the images are data.
     """
     global bwd_launches
+    if src is not None:
+        return _st_gather_bwd_indexed(img, zw, g, src, out_shape,
+                                      compute_dtype, need_img)
     bf16 = _check_compute_dtype(compute_dtype)
     _check_cuda("st_gather_bwd_cuda", img=img, zw=zw, g=g)
     n, in_h, in_w = img.shape
@@ -248,16 +330,53 @@ def st_gather_bwd_cuda(img: torch.Tensor, zw: torch.Tensor, g: torch.Tensor,
     return g_img, g_zw
 
 
+def _st_gather_bwd_indexed(img, zw, g, src, out_shape, compute_dtype,
+                           need_img):
+    global bwd_launches
+    if need_img:
+        raise ValueError("the indexed gather's images are data: it has no "
+                         "image gradient (need_img=False)")
+    _check_src("st_gather_bwd_cuda", img, zw, src, compute_dtype)
+    n, (_, in_h, in_w) = zw.shape[0], img.shape
+    out_h, out_w = (int(s) for s in out_shape)
+    if tuple(g.shape) != (n, out_h, out_w) or g.dtype != torch.float32 \
+            or not g.is_contiguous() or g.device != img.device:
+        raise ValueError(f"want g {(n, out_h, out_w)} float32, contiguous, "
+                         f"on {img.device}; got {tuple(g.shape)} {g.dtype}")
+    g_zw = torch.empty((n, 4), dtype=torch.float32, device=img.device)
+    if n == 0 or out_h * out_w == 0 or in_h * in_w == 0:
+        return None, g_zw.zero_()
+    lib = _load()
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.st_gather_bwd_indexed(
+            img.data_ptr(), src.data_ptr(), zw.data_ptr(), g.data_ptr(),
+            g_zw.data_ptr(), n, in_h, in_w, out_h, out_w, stream)
+    if err:
+        raise RuntimeError(f"st_gather_bwd_indexed kernel launch failed: "
+                           f"CUDA error {err}")
+    bwd_launches += 1
+    shape_launches["st_gather_bwd_indexed", n, in_h, in_w, out_h, out_w] += 1
+    return None, g_zw
+
+
 def st_gather_bwd_plain(img: torch.Tensor, zw: torch.Tensor, g: torch.Tensor,
                         out_shape, compute_dtype: str = "float32",
-                        need_img: bool = True):
+                        need_img: bool = True,
+                        src: torch.Tensor | None = None):
     """The backward kernel's function in plain PyTorch.
 
     The five contractions of the Pallas ``_gather_bwd_kernel`` on
     materialized weights and their ``dW/dp``.  ``bfloat16`` mode rounds
     each contraction's two operands to bf16 and accumulates in f32, as
-    the Pallas kernel's ``dot`` does.
+    the Pallas kernel's ``dot`` does.  With ``src`` the images are
+    ``img[src]`` and ``need_img`` raises, as the indexed kernel does.
     """
+    if src is not None:
+        if need_img:
+            raise ValueError("the indexed gather's images are data: it has "
+                             "no image gradient (need_img=False)")
+        img = img[src.long()]
     bf16 = _check_compute_dtype(compute_dtype)
     (out_h, out_w), (in_h, in_w) = out_shape, img.shape[-2:]
     w_y, dwy, u_y = _axis_weights_and_dp(zw[:, 1], zw[:, 3], out_h, in_h)
@@ -354,31 +473,35 @@ def st_gather_accumulate_plain(canvas: torch.Tensor, glimpse: torch.Tensor,
 
 
 class STGather(torch.autograd.Function):
-    """``st_gather`` with its backward: ``(img (N,H,W), zw (N,4)) → (N,h,w)``.
+    """``st_gather`` with its backward: ``(img (N,H,W), zw (N,4)) → (N,h,w)``,
+    or with ``src (N,)`` the indexed gather of ``img (M,H,W)``.
 
-    Saves ``(img, zw)`` as the Pallas ``custom_vjp`` keeps its residuals.
-    CUDA tensors go to the kernels, CPU tensors to the plain versions, in
-    f32 (the model runs the spatial transformer on f32 operands).  The
-    image gradient is computed only when autograd asks for it (the attend
-    step's gather of the data image needs only ``g_zw``).
+    Saves ``(img, zw)`` (and ``src``) as the Pallas ``custom_vjp`` keeps
+    its residuals.  CUDA tensors go to the kernels, CPU tensors to the
+    plain versions, in f32 (the model runs the spatial transformer on f32
+    operands).  The image gradient is computed only when autograd asks
+    for it (the attend step's gather of the data image needs only
+    ``g_zw``); an indexed gather raises if asked for it.
     """
 
     @staticmethod
-    def forward(ctx, img, zw, out_shape):
-        ctx.save_for_backward(img, zw)
+    def forward(ctx, img, zw, out_shape, src=None):
+        ctx.save_for_backward(img, zw, src)
         ctx.out_shape = tuple(out_shape)
-        if img.is_cuda:
-            return st_gather_cuda(img, zw, ctx.out_shape)
-        return st_gather_plain(img, zw, ctx.out_shape)
+        gather = st_gather_cuda if img.is_cuda else st_gather_plain
+        # without src, the one-to-one call exactly as before
+        return gather(img, zw, ctx.out_shape,
+                      **({} if src is None else {"src": src}))
 
     @staticmethod
     def backward(ctx, g):
-        img, zw = ctx.saved_tensors
+        img, zw, src = ctx.saved_tensors
         need_img, need_zw = ctx.needs_input_grad[:2]
         bwd = st_gather_bwd_cuda if g.is_cuda else st_gather_bwd_plain
         g_img, g_zw = bwd(img, zw, g.contiguous(), ctx.out_shape,
-                          need_img=need_img)
-        return g_img, (g_zw if need_zw else None), None
+                          need_img=need_img,
+                          **({} if src is None else {"src": src}))
+        return g_img, (g_zw if need_zw else None), None, None
 
 
 class STGatherAccumulate(torch.autograd.Function):

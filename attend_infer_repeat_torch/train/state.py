@@ -34,9 +34,11 @@ from attend_infer_repeat_torch.configs import (
     Config,
     PriorAnnealConfig,
     SequenceConfig,
+    SpaceConfig,
     TrainConfig,
 )
 from attend_infer_repeat_torch.models.air import AIRModel
+from attend_infer_repeat_torch.models.space import SpaceModel
 from attend_infer_repeat_torch.models.sqair import SQAIRModel
 from attend_infer_repeat_torch.ops.math import exp_anneal, linear_anneal
 
@@ -166,19 +168,26 @@ def global_norm(tensors) -> torch.Tensor:
 
 def create_train_state(config: Config, seed: int | None = None,
                        device=None,
-                       sequence: SequenceConfig | None = None) -> TrainState:
+                       sequence: SequenceConfig | None = None,
+                       space: SpaceConfig | None = None) -> TrainState:
     """A fresh model (flax-style init from ``seed``) and optimizer state.
 
     ``seed`` defaults to ``config.train.seed``; the model runs on CUDA
     unless ``device="cpu"``.  With ``sequence`` the model is a
-    ``SQAIRModel`` of ``config.model`` over such sequences, with no NVIL
-    baseline (one ``model`` group).
+    ``SQAIRModel`` of ``config.model`` over such sequences, with ``space``
+    a ``SpaceModel`` of ``config.model.img_size`` scenes; either has no
+    NVIL baseline (one ``model`` group).
     """
     seed = config.train.seed if seed is None else seed
-    if sequence is not None:
-        if config.train.use_baseline:
-            raise ValueError("SQAIR trains without the NVIL baseline "
-                             "(train.use_baseline=False)")
+    if (sequence is not None or space is not None) \
+            and config.train.use_baseline:
+        raise ValueError("SQAIR and SPACE train without the NVIL baseline "
+                         "(train.use_baseline=False)")
+    if sequence is not None and space is not None:
+        raise ValueError("pass sequence or space, not both")
+    if space is not None:
+        model = SpaceModel(config.model, space, device=device, seed=seed)
+    elif sequence is not None:
         model = SQAIRModel(config.model, sequence, device=device, seed=seed)
     else:
         model = AIRModel(config.model,

@@ -46,6 +46,7 @@ the step, as GSPMD puts them inside the jitted program.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Optional
 
@@ -55,6 +56,7 @@ import torch
 from attend_infer_repeat_torch.configs import Config
 from attend_infer_repeat_torch.data.synth import (
     synthesize_batch,
+    synthesize_scenes,
     synthesize_sequences,
 )
 from attend_infer_repeat_torch.models.air import AIRModel
@@ -65,6 +67,7 @@ from attend_infer_repeat_torch.models.estimator import (
     surrogate_loss,
     vimco_surrogate_loss,
 )
+from attend_infer_repeat_torch.models.space import SpaceModel, conv_algorithms
 from attend_infer_repeat_torch.models.sqair import SQAIRModel
 from attend_infer_repeat_torch.train.state import (
     GROUPS,
@@ -112,7 +115,7 @@ def _l2_norm_sq(model: torch.nn.Module) -> torch.Tensor:
 
 def make_objective_loss_fn(config: Config, model: AIRModel, imgs,
                            generator, p_success, kl_beta, noise=None,
-                           batch_mean=torch.mean):
+                           batch_mean=torch.mean, model_schedule=None):
     """Build ``loss_fn() → (loss, (metrics, outputs))`` for
     ``config.train.objective``.
 
@@ -136,12 +139,32 @@ def make_objective_loss_fn(config: Config, model: AIRModel, imgs,
     frames, and the log-likelihood and both phases' KL estimates are
     averaged over particles and batch.
 
+    A ``SpaceModel`` (``imgs (B, C, H, W)``) trains under ``"elbo"``
+    alone, with no baseline: the loss is the batch mean of −ELBO, every
+    latent reparameterised; ``model_schedule`` holds its entries of the
+    step's schedule row (``SpaceModel.schedule``), and the metrics are
+    the ELBO's terms (batch means).
+
     Each call of ``loss_fn`` adds to ``objective_counts`` one step and
     one model forward.
     """
     tcfg = config.train
 
-    if isinstance(model, SQAIRModel):
+    if isinstance(model, SpaceModel):
+        if tcfg.objective != "elbo" or tcfg.use_baseline:
+            raise ValueError("SPACE trains on the reparameterised ELBO "
+                             "(objective 'elbo', no baseline)")
+
+        def loss_fn():
+            out = model(imgs, p_success, model_schedule[0], generator,
+                        noise)
+            objective_counts.update(steps=1, forwards=1)
+            metrics = {f: torch.mean(getattr(out, f))
+                       for f in ("elbo", "log_likelihood", "kl_pres",
+                                 "kl_where", "kl_depth", "kl_what", "kl_bg",
+                                 "predicted_steps")}
+            return -metrics["elbo"], (metrics, out)
+    elif isinstance(model, SQAIRModel):
         if tcfg.objective != "iwae":
             raise ValueError("SQAIR trains under the iwae objective only, "
                              f"not {tcfg.objective!r}")
@@ -268,11 +291,15 @@ class _TrainStep:
         self.batch_size = tcfg.batch_size if dp is None \
             else dp.batch_size(tcfg.batch_size)
         self.seq = getattr(model, "seq", None)
-        if self.seq is not None and (device_data is not None
-                                     or dp is not None):
-            raise ValueError("SQAIR trains on synthesized sequences on one "
-                             "device (digit_bank, no mesh)")
+        self.space = getattr(model, "space", None)
+        if (self.seq is not None or self.space is not None) and (
+                device_data is not None or dp is not None):
+            raise ValueError("SQAIR and SPACE train on synthesized data on "
+                             "one device (digit_bank, no mesh)")
         self.opt = Optimizer(tcfg, model)
+        # SPACE's convs: cuDNN's deterministic algorithms, forward and back
+        self.convs = conv_algorithms if self.space is not None \
+            else contextlib.nullcontext
         self.names, self.params = zip(*model.named_parameters())
         self.tops = sorted({n.split(".", 1)[0] for n in self.names})
         self.gens = (torch.Generator(dev), torch.Generator(dev))
@@ -289,7 +316,12 @@ class _TrainStep:
             g.manual_seed(s)
 
     def schedule(self, state: TrainState, ahead: int = 0) -> torch.Tensor:
-        return step_schedule(self.config, self.opt, state, ahead)
+        """The step's schedule row, and after the ``SCHEDULE`` values the
+        model's own (``SpaceModel.schedule``), where it has any."""
+        row = step_schedule(self.config, self.opt, state, ahead)
+        if self.space is None:
+            return row
+        return torch.cat([row, self.model.schedule(state.step + ahead)])
 
     def state_tensors(self, state: TrainState):
         """Every tensor a step writes: parameters, ``nu``, ``trace``."""
@@ -318,6 +350,10 @@ class _TrainStep:
                     return synthesize_sequences(self.bank, self.config.data,
                                                 self.seq, self.batch_size,
                                                 g_data)
+                if self.space is not None:
+                    return synthesize_scenes(self.bank, self.config.data,
+                                             self.space, self.batch_size,
+                                             g_data)
                 return synthesize_batch(self.bank, self.config.data,
                                         self.batch_size, g_data)
         raise ValueError("no data: build the step with digit_bank or "
@@ -342,9 +378,10 @@ class _TrainStep:
             batch_mean = dp.batch_mean
         loss_fn = make_objective_loss_fn(
             self.config, model, imgs, self.gens[1], p_success, kl_beta,
-            noise, batch_mean)
-        loss, (metrics, outputs) = loss_fn()
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+            noise, batch_mean, sched[len(SCHEDULE):])
+        with self.convs():
+            loss, (metrics, outputs) = loss_fn()
+            grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
 
@@ -486,9 +523,10 @@ class StepGraph:
                  batch=None, noise=None):
         self.ts, self.k = ts, k_steps
         dev = ts.device
-        self.table = torch.zeros((k_steps, len(SCHEDULE)), device=dev)
+        row = ts.schedule(state)
+        self.table = torch.zeros((k_steps, row.shape[0]), device=dev)
         self.row = torch.zeros((1,), dtype=torch.int64, device=dev)
-        self.table.copy_(ts.schedule(state).expand(k_steps, -1))
+        self.table.copy_(row.expand(k_steps, -1))
         self.inputs = graphs.static_like((batch, noise), dev)
         self.keys, self.out = None, None
         self.graph, self.held = None, None

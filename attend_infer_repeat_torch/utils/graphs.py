@@ -50,6 +50,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import sys
 import warnings
 from typing import Callable, Sequence
 
@@ -101,15 +102,32 @@ def no_host_sync():
         torch.cuda.set_sync_debug_mode(prev)
 
 
+#: Further counters that a replay adds to as a run of its body does:
+#: ``(module name, attribute)`` of a ``collections.Counter``, registered by
+#: the module that keeps it (``carry``) and read by name, so that a counter
+#: put in its place is the one carried.
+CARRIED: list = []
+
+
+def carry(module: str, name: str) -> None:
+    """Carry ``module``'s counter ``name`` through capture and replay, as
+    the kernels' launch counts are carried."""
+    if (module, name) not in CARRIED:
+        CARRIED.append((module, name))
+
+
 def _launch_counts() -> tuple:
     """The kernels' launch counts: the ST kernels' forward, backward and
-    by shape, and the LSTM kernels' (``modules.lstm_counts``)."""
+    by shape, the LSTM kernels' (``modules.lstm_counts``), then each
+    counter of ``CARRIED``."""
     from attend_infer_repeat_torch.models import modules
     from attend_infer_repeat_torch.ops import st_kernel
 
     return (st_kernel.launches, st_kernel.bwd_launches,
             collections.Counter(st_kernel.shape_launches),
-            collections.Counter(modules.lstm_counts))
+            collections.Counter(modules.lstm_counts),
+            *(collections.Counter(getattr(sys.modules[m], n))
+              for m, n in CARRIED))
 
 
 def _add_launches(counts: tuple, sign: int = 1) -> None:
@@ -120,8 +138,9 @@ def _add_launches(counts: tuple, sign: int = 1) -> None:
 
     st_kernel.launches += sign * counts[0]
     st_kernel.bwd_launches += sign * counts[1]
-    for total, part in ((st_kernel.shape_launches, counts[2]),
-                        (modules.lstm_counts, counts[3])):
+    totals = [st_kernel.shape_launches, modules.lstm_counts,
+              *(getattr(sys.modules[m], n) for m, n in CARRIED)]
+    for total, part in zip(totals, counts[2:]):
         if sign > 0:
             total.update(part)
         else:
@@ -163,7 +182,7 @@ class Graph:
             finally:
                 after = _launch_counts()
                 captured = (after[0] - counts[0], after[1] - counts[1],
-                            after[2] - counts[2], after[3] - counts[3])
+                            *(a - c for a, c in zip(after[2:], counts[2:])))
                 _add_launches(captured, sign=-1)
         self.per_replay = captured
         self.pool_bytes = self._reserved() - reserved

@@ -10,14 +10,16 @@ Phases, in order (any failure raises and exits non-zero):
    nvcc call;
 3. kernel against plain: the gather kernel and its plain PyTorch version
    on the same inputs at the serving and train paths' shapes (gather
-   50×50→20×20, paste 20×20→50×50, synthesis paste 16×16→50×50), f32 and
+   50×50→20×20, paste 20×20→50×50, synthesis paste 16×16→50×50; SPACE's
+   render paste 32×32→128×128 and synthesis paste 16×16→128×128), f32 and
    bf16 modes, edge cases, and the windows of ``WINDOW_CASES`` (each
    names the kernel branch it reaches); times of the kernel, the plain
    version and one PyTorch library call of the same function
    (``grid_sample``), beside the bound of the bytes and FLOP that this
    run's inputs need (``gather_work``);
 3b. the backward kernel against its plain version in the same way, at
-   the train step's shapes and at N = 8192, ragged N and an odd shape;
+   the train step's shapes (SPACE's render paste too, both gradients)
+   and at N = 8192, ragged N and an odd shape;
    edge cases and ``WINDOW_CASES``; two runs bit-identical; the library
    call is ``grid_sample``'s backward; the bound counts the cotangent only
    where it has a tap (``gather_bwd_work``);
@@ -29,6 +31,14 @@ Phases, in order (any failure raises and exits non-zero):
    carry, at the serve shape (N = 8192) and the ``canonical_fast`` and
    ``crowded`` step shapes, and on ``WINDOW_CASES``; each timed beside
    its plain version, the unfused ops and its bound (``accumulate_work``);
+3e. the indexed gather (``st_gather_cuda(..., src=...)``, SPACE's 256
+   glimpses of every channel of a scene) and its window gradient against
+   their plain versions (the plain gather of ``img[src]``, at F32_TOL and
+   BWD_TOL) and against the one-to-one kernels on materialised copies
+   ``img[src]``, bit for bit, at SPACE's step shape (24,576 windows of 96
+   images, 128×128 → 32×32) and a ragged one; each timed beside its plain
+   version, the copies' kernel (the copy not counted) and its bound (the
+   images read once, the windows and outputs once: ``indexed_work``);
 3d. the LSTM cell's pointwise kernels (``csrc/lstm_cell.cu``) against
    their plain twins, bit for bit, at the main paths' rows of 256 hidden
    units (``LSTM_ROWS``), with ``c_prev`` a row-strided slot and
@@ -72,6 +82,15 @@ Phases, in order (any failure raises and exits non-zero):
    1024, the single train step on an external host batch; results
    bit-equal, generators left in one state, both walls and each graph's
    memory pool printed; launch counts read around that run;
+5e. SPACE's train step at its benchmark configuration
+   (``air_bench/configs/space_g16.json``, read as data: batch 32, 128 ×
+   128 RGB scenes, 256 cells): two graphed calls of ``SPACE_K`` steps
+   through ``make_scan_train_step`` against the same steps run eagerly
+   from the same state, bit for bit; the ST launches by shape a step (the
+   synthesis paste, the indexed gather, the render's paste; the indexed
+   g_zw, the paste's backward) and ``space_counts`` held; the counters
+   are set to 0 just before it, so that the ``kernels`` line counts the
+   indexed kernels' launches;
 6. one step's loss and gradients through the kernels and through the
    plain spatial transformer, for ``canonical`` and ``canonical_fast``;
 7. the training loop: ``train()`` on ``canonical_fast`` at batch 1024 to
@@ -161,14 +180,15 @@ Phases, in order (any failure raises and exits non-zero):
    launches by shape in phases 7e and 8; ``lstm_cell`` and
    ``lstm_cell_bwd``: their launches in the same phases, from
    ``modules.lstm_counts`` set to 0 before phase 4, and phase 3d's
-   rows), then the
+   rows; ``st_gather_indexed`` and ``st_gather_bwd_indexed``: their
+   launches in phase 5e, and phase 3e's rows with their bounds), then the
    last line
    ``{"ok": true, "device": {...}}``.
 
 Phases 3 and 3b include the ``crowded`` preset's 100×100 canvas, and a
 NaN and an infinity in the image and the cotangent against the plain
 versions' pattern.  The ``kernels`` line counts every launch of the main
-paths (phases 4, 5, 5c, 5d, 7, 7b, 7d, 7e and 8): eager launches, and for a
+paths (phases 4, 5, 5c, 5d, 5e, 7, 7b, 7d, 7e and 8): eager launches, and for a
 replayed graph the launches of one captured run times its replays; the
 ``crowded`` step rows carry the number of ``crowded`` steps of phase 8,
 each of which launched each of them once.  Imports nothing of JAX.
@@ -182,6 +202,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -545,6 +566,12 @@ def kernel_phase(st_kernel, invert_where, bw, f32_peak):
         ("paste 20x20->100x100", N_TRAIN, (20, 20), (100, 100), True, True),
         ("synth paste 16x16->100x100", 5 * N_TRAIN, (16, 16), (100, 100),
          True, True),
+        # SPACE (space_g16, batch 32): the scenes' synthesis paste and the
+        # render's paste of 4 rows a cell
+        ("synth paste 16x16->128x128", 32 * 24, (16, 16), (128, 128), True,
+         True),
+        ("paste 32x32->128x128", 32 * 256 * 4, (32, 32), (128, 128), True,
+         True),
         ("gather 50x50->20x20", 1, (50, 50), (20, 20), False, False),
         ("gather 50x50->20x20", 5, (50, 50), (20, 20), False, False),
         ("paste 20x20->50x50", 17, (20, 20), (50, 50), True, False),
@@ -589,6 +616,82 @@ def kernel_phase(st_kernel, invert_where, bw, f32_peak):
           flush=True)
     nonfinite_phase(st_kernel, invert_where, backward=False)
     return rows
+
+
+def indexed_work(images, n, side, glimpse, backward):
+    """Bytes of an indexed gather (or its g_zw-only backward) with each
+    image read once: the images, the windows and indices, and the output
+    (or the cotangent and the window gradients)."""
+    return 4 * (images * side * side + n * (4 + 1 + glimpse * glimpse)
+                + (4 * n if backward else 0))
+
+
+def indexed_phase(st_kernel, bw):
+    """The indexed gather and its g_zw against their plain versions (the
+    plain gather of ``img[src]``, F32_TOL and BWD_TOL) and against the
+    one-to-one kernels on copies ``img[src]``, bit for bit; timed at
+    SPACE's step shape.  Returns the forward's rows and the backward's."""
+    gen = torch.Generator("cuda").manual_seed(11)
+    rows, bwd_rows = [], []
+    for images, n, timed_case in ((96, 24_576, True), (7, 1_023, False)):
+        img = torch.rand((images, 128, 128), generator=gen, device="cuda")
+        zw = torch.cat([0.05 + 0.9 * torch.rand((n, 2), generator=gen,
+                                                device="cuda"),
+                        2.5 * torch.rand((n, 2), generator=gen,
+                                         device="cuda") - 1.25], 1)
+        src = torch.randint(0, images, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        copies = img[src.long()].contiguous()
+        g = torch.randn((n, 32, 32), generator=gen, device="cuda")
+
+        def fwd(x, s=None):
+            return st_kernel.st_gather_cuda(x, zw, (32, 32), src=s)
+
+        def bwd(x, s=None):
+            return st_kernel.st_gather_bwd_cuda(x, zw, g, (32, 32),
+                                                need_img=False, src=s)[1]
+
+        def fwd_plain():
+            return st_kernel.st_gather_plain(img, zw, (32, 32), src=src)
+
+        def bwd_plain():
+            return st_kernel.st_gather_bwd_plain(img, zw, g, (32, 32),
+                                                 need_img=False, src=src)[1]
+
+        name = f"indexed gather 128x128->32x32 of {images} images"
+        got, got_zw = fwd(img, src), bwd(img, src)
+        if not (torch.equal(got, fwd(copies))
+                and torch.equal(got_zw, bwd(copies))):
+            raise AssertionError(f"{name} N={n}: not bit-equal to the "
+                                 f"kernels on copies")
+        err = (got - fwd_plain()).abs().max().item()
+        _, err_zw, ok = bwd_errors((None, got_zw), (None, bwd_plain()))
+        if not (err <= F32_TOL and ok):
+            raise AssertionError(f"{name} N={n}: kernel vs plain err {err}, "
+                                 f"g_zw {err_zw} over the limit")
+        row = {"case": name, "n": n, "max_abs_err": err}
+        bwd_row = {"case": name + ", g_zw only (as the step)", "n": n,
+                   "max_abs_err": err_zw, "err_g_zw": err_zw}
+        msg = (f"  {name} N={n}: bit-equal to the kernels on copies; err "
+               f"f32 {err:.3g}, g_zw {err_zw:.3g}")
+        if timed_case:
+            for r, fn, plain, back in ((row, fwd, fwd_plain, False),
+                                       (bwd_row, bwd, bwd_plain, True)):
+                nbytes = indexed_work(images, n, 128, 32, back)
+                r.update(ms=cuda_ms(lambda: fn(img, src)),
+                         copies_ms=cuda_ms(lambda: fn(copies)),
+                         plain_ms=cuda_ms(plain),
+                         bound_ms=nbytes / bw * 1e3, bound_by="bytes")
+                msg += (f"; {'bwd' if back else 'fwd'} kernel "
+                        f"{r['ms'] * 1e3:.2f} us, on copies "
+                        f"{r['copies_ms'] * 1e3:.2f} us, plain "
+                        f"{r['plain_ms'] * 1e3:.2f} us, bound "
+                        f"{r['bound_ms'] * 1e3:.2f} us "
+                        f"({nbytes / 1e6:.3f} MB)")
+        print(msg, flush=True)
+        rows.append(row)
+        bwd_rows.append(bwd_row)
+    return rows, bwd_rows
 
 
 ACC_KEY = "st_gather_accumulate"
@@ -1139,6 +1242,9 @@ def bwd_phase(st_kernel, invert_where, bw, f32_peak):
          True, True),
         ("paste bwd 20x20->100x100", N_TRAIN, (20, 20), (100, 100), True,
          True, True),
+        # SPACE's render paste, both gradients (space_g16, batch 32)
+        ("paste bwd 32x32->128x128", 32 * 256 * 4, (32, 32), (128, 128),
+         True, True, True),
         ("gather bwd 50x50->20x20", 1, (50, 50), (20, 20), False, True,
          False),
         ("gather bwd 50x50->20x20", 5, (50, 50), (20, 20), False, True,
@@ -1897,6 +2003,109 @@ def graphed_vs_eager(air, name, make, seed, smi, *args):
           f"{MESH_CALLS}); graph pool {pool / 2**20:.1f} MiB; {smi}",
           flush=True)
     return fns["graphed"], states["graphed"], got
+
+
+# Phase 5e: SPACE's step at the benchmark configuration's widths and batch.
+SPACE_CONFIG = (Path(__file__).resolve().parent / "air_bench" / "configs"
+                / "space_g16.json")
+SPACE_K = 2
+
+
+def space_config():
+    """``(Config, SpaceConfig)`` of SPACE's benchmark configuration
+    (``SPACE_CONFIG``, read as data)."""
+    from attend_infer_repeat_torch import configs as c
+
+    def tup(v):
+        return tuple(tup(x) for x in v) if isinstance(v, list) else v
+
+    doc = json.loads(SPACE_CONFIG.read_text())["config"]
+    sections = {"model": c.ModelConfig, "prior": c.PriorAnnealConfig,
+                "train": c.TrainConfig, "data": c.DataConfig}
+    cfg = c.Config(name=doc["name"], **{
+        k: cls(**{f: tup(v) for f, v in doc[k].items()})
+        for k, cls in sections.items()})
+    return cfg, c.SpaceConfig(**{k: tup(v) for k, v in doc["space"].items()})
+
+
+def space_phase(air, st_kernel, smi):
+    """SPACE's train step (``space_g16``: 128 × 128 RGB scenes, 256 cells,
+    batch 32) through ``make_scan_train_step``: two graphed calls of
+    ``SPACE_K`` steps against the same steps run eagerly
+    (``debug_mode``) from the same state, bit for bit in the parameters,
+    the optimizer state and every metric row; the ST launches by shape a
+    step (the synthesis paste, the indexed gather and the render's paste;
+    the indexed g_zw and the paste's backward) and ``space_counts``, the
+    first graphed call with its warm-ups; step walls."""
+    from attend_infer_repeat_torch.data import load_digit_bank
+    from attend_infer_repeat_torch.models import space
+    from attend_infer_repeat_torch.utils import debug_mode
+    from attend_infer_repeat_torch.utils.graphs import WARMUP
+
+    cfg, sc = space_config()
+    bank, _ = load_digit_bank(cfg.data.source, cfg.data.digit_size)
+    b, cells = cfg.train.batch_size, sc.grid ** 2
+    windows, pastes = b * cells * sc.channels, b * cells * (sc.channels + 1)
+    side, (gh, gw) = cfg.model.img_size[0], sc.glimpse_size
+    per_step = {
+        ("st_gather", b * cfg.data.max_digits, *cfg.data.digit_size, side,
+         side): 1,
+        ("st_gather_indexed", windows, side, side, gh, gw): 1,
+        ("st_gather_bwd_indexed", windows, side, side, gh, gw): 1,
+        ("st_gather", pastes, gh, gw, side, side): 1,
+        ("st_gather_bwd", pastes, gh, gw, side, side): 1}
+    counts_per_step = {"cells": b * cells, "glimpses": windows,
+                       "components": b * sc.components}
+
+    def launched(fn, state, runs, what):
+        shapes0 = collections.Counter(st_kernel.shape_launches)
+        counts0 = collections.Counter(space.space_counts)
+        out, dt = timed(fn, state)
+        got = +(st_kernel.shape_launches - shapes0)
+        if got != {k: runs * v for k, v in per_step.items()}:
+            raise AssertionError(f"SPACE {what}: ST launches {dict(got)}, "
+                                 f"expected {runs} x {per_step}")
+        got = +(space.space_counts - counts0)
+        if got != {k: runs * v for k, v in counts_per_step.items()}:
+            raise AssertionError(f"SPACE {what}: space_counts {dict(got)}, "
+                                 f"expected {runs} x {counts_per_step}")
+        return out, dt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    graphed = air.create_train_state(cfg, seed=0, space=sc)
+    eager = air.create_train_state(cfg, seed=0, space=sc)
+    scan = air.make_scan_train_step(cfg, graphed.model, bank, SPACE_K)
+    eager_scan = air.make_scan_train_step(cfg, eager.model, bank, SPACE_K)
+    walls = []
+    for call, runs in enumerate((WARMUP + SPACE_K, SPACE_K)):
+        (graphed, rows), dt_graphed = launched(scan, graphed, runs,
+                                               f"graphed call {call}")
+        with debug_mode(nans=False):
+            (eager, want), dt_eager = launched(eager_scan, eager, SPACE_K,
+                                               f"eager call {call}")
+        n_differ, worst, err = state_gap(graphed, eager)
+        gaps = rows_gap(rows, want)
+        if n_differ or any(gaps.values()) or graphed.step != eager.step:
+            raise AssertionError(f"SPACE graphed call {call}: {n_differ} "
+                                 f"tensors differ from eager (worst {worst}: "
+                                 f"rel L2 {err:.3g}), rows {gaps}")
+        check_metrics(rows, f"SPACE graphed call {call}")
+        walls.append((dt_graphed, dt_eager))
+    peak = torch.cuda.max_memory_allocated()
+    (dt_graphed, dt_eager), (dt_capture, _) = walls[1], walls[0]
+    print(f"  SPACE {cfg.name} batch {b}: 2 graphed calls of {SPACE_K} steps "
+          f"bit-equal to eager (parameters, optimizer state, rows); ST "
+          f"launches a step {sorted(per_step)}; space_counts a step "
+          f"{counts_per_step}; first call (warm-ups, capture) "
+          f"{dt_capture:.2f} s; a step graphed {dt_graphed / SPACE_K * 1e3:.1f}"
+          f" ms, eager {dt_eager / SPACE_K * 1e3:.1f} ms; peak "
+          f"{peak / 2 ** 30:.1f} GiB; loss {rows['loss'][-1].item():.1f}; "
+          f"{smi}", flush=True)
+    del scan, eager_scan, graphed, eager
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def mesh_phase(air, st_kernel, bank, smi):
@@ -2915,12 +3124,17 @@ def main() -> int:
           flush=True)
     acc_rows = accumulate_phase(st_kernel, invert_where, bw, f32_peak)
 
+    print(f"[3e] the indexed gather against plain (limits f32 {F32_TOL}, "
+          f"g_zw {BWD_TOL[1]} of max(1, max|plain|)) and against the kernels "
+          f"on copies, bit for bit", flush=True)
+    indexed_rows, indexed_bwd_rows = indexed_phase(st_kernel, bw)
+
     print("[3d] the LSTM kernels against their plain twins, bit for bit",
           flush=True)
     lstm_rows, lstm_bwd_rows = lstm_phase(bw, f32_peak)
 
     # each kernel's launches in the phases that run the program (4, 5, 5c,
-    # 5d, 7, 7b, 7d, 7e and 8; not the checks and timings of 3-3d, 5b, 6,
+    # 5d, 5e, 7, 7b, 7d, 7e and 8; not the checks and timings of 3-3e, 5b, 6,
     # 7c and 8b), from the ST kernels' launches by shape and the LSTM
     # kernels' counts
     from attend_infer_repeat_torch.models import modules
@@ -2963,6 +3177,13 @@ def main() -> int:
     print("[5d] the other entry points as CUDA graphs against eager",
           flush=True)
     counted(entry_points_phase, air, st_kernel, smi, bank)
+
+    print("[5e] SPACE's train step, graphed against eager", flush=True)
+    from attend_infer_repeat_torch.models import space
+    st_kernel.launches = st_kernel.bwd_launches = 0
+    st_kernel.shape_launches.clear()
+    space.space_counts.clear()
+    counted(space_phase, air, st_kernel, smi)
 
     print("[6] one step through the plain ST on the card", flush=True)
     plain_step_phase(air, st_kernel, STEP_LIMITS)
@@ -3056,6 +3277,26 @@ def main() -> int:
             "shapes": [{k: r[k] for k in keys} for r in rows],
         }
 
+    def indexed_line(name, source, replaces, rows):
+        head = next(r for r in rows if "ms" in r)
+        keys = ("case", "n", "ms", "copies_ms", "plain_ms", "bound_ms",
+                "bound_by", "max_abs_err")
+        if not phase_launches[name]:
+            raise AssertionError(f"the main paths launched no {name}")
+        return {
+            "name": name, "route": "cuda",
+            "source": f"attend_infer_repeat_torch/csrc/{source}",
+            "replaces": f"attend_infer_repeat_tpu/ops/pallas_st.py:{replaces}"
+                        f" (one image a window there)",
+            "launches": phase_launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": head["ms"], "copies_ms": head["copies_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "shape": f"{head['case']} N={head['n']}",
+            "shapes": [{k: r[k] for k in keys} for r in rows if "ms" in r],
+        }
+
     kernels = [
         kernel_line("st_gather", "st_gather.cu", 54,
                     [r for r, f in zip(fwd_rows, fused) if not f],
@@ -3067,6 +3308,9 @@ def main() -> int:
         kernel_line("st_gather_bwd", "st_gather_bwd.cu", 155,
                     bwd_rows + step_bwd_rows + crowded_bwd_rows,
                     lambda c, n: c.startswith("step paste bwd")),
+        indexed_line("st_gather_indexed", "st_gather.cu", 54, indexed_rows),
+        indexed_line("st_gather_bwd_indexed", "st_gather_bwd.cu", 155,
+                     indexed_bwd_rows),
         lstm_line("lstm_cell", lstm_rows),
         lstm_line("lstm_cell_bwd", lstm_bwd_rows),
     ]

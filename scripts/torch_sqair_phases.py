@@ -1,22 +1,25 @@
-"""Split a SQAIR train step's device time by phase, on the card.
+"""Split a SQAIR or SPACE train step's device time by phase, on the card.
 
-    python3 scripts/torch_sqair_phases.py [--batch 1024] [--steps 2]
-        [--seed 7]
+    python3 scripts/torch_sqair_phases.py [--model sqair|space]
+        [--batch N] [--steps 2] [--seed 7]
 
-Builds the benchmark's SQAIR configuration
-(``air_bench/configs/sqair_k5.json``, its weights from ``--seed``) and its
+Builds the benchmark's configuration of the model
+(``air_bench/configs/sqair_k5.json`` or ``space_g16.json``, its weights
+from ``--seed``; ``--batch`` defaults to the configuration's) and its
 one-step entry (``make_train_step``), and runs train steps eagerly
-(``utils.debug_mode``): the spans ``air.sqair.*`` are host ranges that
-only the step's Python opens, and a graph replay runs no Python.  After
-one untraced step it traces ``--steps`` steps with ``torch.profiler`` and
-prints, a step: the device time of the kernels launched inside each of
-the forward's spans (``sqair.propagate``, ``sqair.discover``,
-``sqair.compact``, and the synthesis, ``data.sequences``), the rest (the
-log weights, the loss, the backward with remat's recomputes, the update),
-the kernels, the ST kernels' time and the device's busy share of the
-traced wall.  The eager step is slower than the graphed one: its host
-issues each kernel.  Prints the card's name and power limit first.
-Needs one CUDA card.
+(``utils.debug_mode``): the spans ``air.sqair.*`` and ``air.space.*`` are
+host ranges that only the step's Python opens, and a graph replay runs no
+Python.  After one untraced step it traces ``--steps`` steps with
+``torch.profiler`` and prints, a step: the device time of the kernels
+launched inside each of the forward's spans (SQAIR: ``sqair.propagate``,
+``sqair.discover``, ``sqair.compact``, and the synthesis,
+``data.sequences``; SPACE: ``space.fg``, ``space.render``, ``space.bg``
+and ``data.scenes``), the rest (the log weights or likelihood, the loss,
+the backward with remat's recomputes, the update), the kernels, the ST
+kernels' time, the device's busy share of the traced wall, and the peak
+memory of the untraced step.  The eager step is slower than the graphed
+one: its host issues each kernel.  Prints the card's name and power limit
+first.  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -34,13 +37,31 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-SPANS = ("sqair.propagate", "sqair.discover", "sqair.compact",
-         "data.sequences")
+#: By model: the configuration, its traffic kind and the forward's spans.
+MODELS = {
+    "sqair": ("sqair_k5", "sequences", ("sqair.propagate", "sqair.discover",
+                                        "sqair.compact", "data.sequences")),
+    "space": ("space_g16", "scenes", ("space.fg", "space.render", "space.bg",
+                                      "data.scenes")),
+}
+
+
+def _train_state(model, cfg, seed, dev):
+    from air_bench import layout
+
+    kind = layout.kind(MODELS[model][1])
+    if model == "sqair":
+        return kind.train_state(cfg, seed, dev)
+    from air_bench.reference import space as rspace
+
+    return kind.train_state(cfg, rspace.make_weights(cfg, seed, dev), seed,
+                            dev)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--model", choices=sorted(MODELS), default="sqair")
+    ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--device", default="cuda",
@@ -63,16 +84,22 @@ def main(argv=None) -> int:
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip(), flush=True)
-    cfg = copy.deepcopy(layout.load("configs", "sqair_k5")["config"])
-    cfg["train"]["batch_size"] = args.batch
+    name, _, spans = MODELS[args.model]
+    cfg = copy.deepcopy(layout.load("configs", name)["config"])
+    if args.batch is not None:
+        cfg["train"]["batch_size"] = args.batch
     dev = torch.device(args.device)
-    state = layout.kind("sequences").train_state(cfg, args.seed, dev)
+    state = _train_state(args.model, cfg, args.seed, dev)
     bank = synth.digit_bank(cfg["data"]["digit_size"], dev)
     step = program.air().make_train_step(program.config(cfg), state.model,
                                          digit_bank=bank)
     with debug_mode(nans=False):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         state, _ = step(state)
         _sync(dev)
+        peak = torch.cuda.max_memory_allocated(dev) \
+            if dev.type == "cuda" else 0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
@@ -81,7 +108,7 @@ def main(argv=None) -> int:
             _sync(dev)
             wall = time.perf_counter() - t
     summary = summarize(prof, wall)
-    by_span = dict.fromkeys(SPANS, 0.0)
+    by_span = dict.fromkeys(spans, 0.0)
     for e in prof.events():
         name = e.name[len(PREFIX):] if e.name.startswith(PREFIX) else None
         if name in by_span:
@@ -94,7 +121,8 @@ def main(argv=None) -> int:
         kernels=summary["n_kernels"] / args.steps,
         st_kernels_ms=1e3 * summary["st_kernel_s"] / args.steps,
         busy_pct=100.0 * summary["busy_s"] / wall,
-        wall_ms=1e3 * wall / args.steps, loss=float(metrics["loss"]))
+        wall_ms=1e3 * wall / args.steps, loss=float(metrics["loss"]),
+        peak_bytes=peak, batch=cfg["train"]["batch_size"])
     print(json.dumps(out), flush=True)
     return 0
 

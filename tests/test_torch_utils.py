@@ -5,6 +5,7 @@ launch counts and the program's host spans."""
 import collections
 import json
 import os
+import sys
 
 import pytest
 import torch
@@ -111,24 +112,34 @@ def test_package_exports_resolve():
 def test_graph_counts_launches_by_shape(monkeypatch):
     """A graph's capture adds no launch, since it executes nothing; each
     replay adds the launches of one captured run, by shape too, and the
-    LSTM kernels' (``modules.lstm_counts``) as the ST kernels'."""
+    LSTM kernels' (``modules.lstm_counts``) and a counter registered with
+    ``graphs.carry`` as the ST kernels'."""
     from attend_infer_repeat_torch.models import modules
     from attend_infer_repeat_torch.ops import st_kernel
+
+    module = sys.modules[__name__]
 
     key = ("st_gather_bwd", 4, 20, 20, 50, 50)
     monkeypatch.setattr(st_kernel, "launches", 0)
     monkeypatch.setattr(st_kernel, "bwd_launches", 0)
     monkeypatch.setattr(st_kernel, "shape_launches", collections.Counter())
     monkeypatch.setattr(modules, "lstm_counts", collections.Counter())
+    monkeypatch.setattr(module, "carried", collections.Counter(),
+                        raising=False)
+    monkeypatch.setattr(graphs, "CARRIED", [])
+    graphs.carry(__name__, "carried")
+    graphs.carry(__name__, "carried")       # once only
 
     def body():                     # counts as the kernels' wrappers do
         st_kernel.bwd_launches += 1
         st_kernel.shape_launches[key] += 1
         modules.lstm_counts["fused"] += 1
+        module.carried["cells"] += 256
 
     graph = PythonAtCaptureOnly(body, "cpu")
     assert graph.per_replay == (0, 1, collections.Counter({key: 1}),
-                                collections.Counter({"fused": 1}))
+                                collections.Counter({"fused": 1}),
+                                collections.Counter({"cells": 256}))
     assert st_kernel.bwd_launches == st_kernel.shape_launches[key] == \
         modules.lstm_counts["fused"] == graphs.WARMUP
     graph.launch()
@@ -139,6 +150,8 @@ def test_graph_counts_launches_by_shape(monkeypatch):
         collections.Counter({key: graphs.WARMUP + 2})
     assert +modules.lstm_counts == collections.Counter(
         {"fused": graphs.WARMUP + 2})
+    assert +module.carried == collections.Counter(
+        {"cells": 256 * (graphs.WARMUP + 2)})
 
 
 def test_only_the_graph_layer_chooses_eager():
